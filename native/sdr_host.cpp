@@ -1,7 +1,7 @@
 // sdr_host — native host-side runtime for sdr_tpu.
 //
-// The reference is a header-only C++ DSP library (lib/inc/*.hpp); on
-// TPU the numerics live in XLA/Pallas, so the native layer's job moves
+// The reference is a header-only C++ DSP library (lib/inc/*.hpp); in
+// sdr_tpu the numerics live in XLA, so the native layer's job moves
 // to the HOST data path: high-rate byte/bit framing, streaming ring
 // buffers feeding the device, CRC frame integrity, and an independent
 // C++ golden oracle of the reference PHY contract (FFT conventions,

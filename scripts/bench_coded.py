@@ -1,47 +1,21 @@
-"""Chained coded-link throughput: the LDPC fast engine vs link.coded.
+"""Coded-link timer: the batched LDPC fast engine, in information bits/s.
 
 Measures end-to-end CODED Monte-Carlo simulation (info bits → encode →
-interleave → TX kernel → channel kernel → demod → deinterleave →
-min-sum decode → info-bit errors) in information bits/s. Engines:
-
-  old    — link.coded.simulate_ldpc (per-channel vmap through
-           link.pipeline; the round-4 staged composition)
-  staged — link.fast_coded, public-order LLR seam
-  fused  — link.fast_coded, composed-permutation seam (CL kernel-order
-           plane straight into the transposed sublane decoder)
-
-Chained methodology as everywhere (one jitted fori_loop, key folded
-with the carry, scalar fetch). Knobs: SDR_BENCH_CHANNELS, SDR_BENCH_SYMS,
-SDR_BENCH_NFFT/CP/MOD/EBNO, SDR_BENCH_LDPC_ITERS, SDR_BENCH_LDPC_SCHEDULE,
-SDR_BENCH_ITERS, SDR_BENCH_REPS, SDR_BENCH_CODED_ENGINE.
+interleave → TX → channel → demod → deinterleave → min-sum decode →
+info-bit errors). Link and decoder: SDR_BENCH_CHANNELS, SDR_BENCH_SYMS,
+SDR_BENCH_NFFT/CP/MOD/EBNO, SDR_BENCH_LDPC_ITERS,
+SDR_BENCH_LDPC_SCHEDULE (flooding|layered).
 """
 
 from __future__ import annotations
 
-import json
 import os
-import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-import jax.numpy as jnp
-from jax import lax
+from _timing import env_int, time_program
 
 
 def main() -> None:
-    n_fft = int(os.environ.get("SDR_BENCH_NFFT", "256"))
-    cp = int(os.environ.get("SDR_BENCH_CP", "64"))
-    n_channels = int(os.environ.get("SDR_BENCH_CHANNELS", "2048"))
-    n_syms = int(os.environ.get("SDR_BENCH_SYMS", "12"))
-    ebno_db = float(os.environ.get("SDR_BENCH_EBNO", "6.0"))
-    mod_name = os.environ.get("SDR_BENCH_MOD", "16qam")
-    ms_iters = int(os.environ.get("SDR_BENCH_LDPC_ITERS", "25"))
-    schedule = os.environ.get("SDR_BENCH_LDPC_SCHEDULE", "flooding")
-    iters = int(os.environ.get("SDR_BENCH_ITERS", "4"))
-    reps = int(os.environ.get("SDR_BENCH_REPS", "3"))
-    engine = os.environ.get("SDR_BENCH_CODED_ENGINE", "fused")
+    import jax
 
     from sdr_tpu.core.config import (
         ChannelConfig,
@@ -51,74 +25,33 @@ def main() -> None:
         Modulation,
         OFDMConfig,
     )
+    from sdr_tpu.link.coded import ldpc_code_for, ldpc_codewords_per_channel
+    from sdr_tpu.link.fast_coded import make_ldpc_fast_fn
 
     cfg = LinkConfig(
-        ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
-        modulation=Modulation(mod_name),
+        ofdm=OFDMConfig(n_fft=env_int("SDR_BENCH_NFFT", 256),
+                        cp_len=env_int("SDR_BENCH_CP", 64)),
+        modulation=Modulation(os.environ.get("SDR_BENCH_MOD", "16qam")),
         channel=ChannelConfig(
-            model=ChannelModel.RAYLEIGH_FLAT, ebno_db=ebno_db
+            model=ChannelModel.RAYLEIGH_FLAT,
+            ebno_db=float(os.environ.get("SDR_BENCH_EBNO", "6.0")),
         ),
         equalizer=Equalizer.MMSE,
-        n_channels=n_channels,
-        n_symbols=n_syms,
+        n_channels=env_int("SDR_BENCH_CHANNELS", 2048),
+        n_symbols=env_int("SDR_BENCH_SYMS", 12),
     )
-
-    if engine == "old":
-        from sdr_tpu.link.coded import (
-            ldpc_code_for,
-            ldpc_codewords_per_channel,
-            simulate_ldpc,
-        )
-
-        code = ldpc_code_for("1/2")
-        n_info = ldpc_codewords_per_channel(cfg, code) * code.k
-
-        def one(key):
-            e, _ = simulate_ldpc(cfg, key, iters=ms_iters)
-            return jnp.sum(e)
-    else:
-        from sdr_tpu.link.coded import ldpc_code_for, ldpc_codewords_per_channel
-        from sdr_tpu.link.fast_coded import ldpc_fast_simulate
-
-        code = ldpc_code_for("1/2")
-        n_info = ldpc_codewords_per_channel(cfg, code) * code.k
-
-        def one(key):
-            e, _ = ldpc_fast_simulate(
-                cfg, key, iters=ms_iters, schedule=schedule, seam=engine
-            )
-            return jnp.sum(e)
-
-    @jax.jit
-    def run(seed):
-        def body(i, acc):
-            key = jax.random.fold_in(jax.random.PRNGKey(seed), i + (acc & 1))
-            return acc + one(key)
-
-        return lax.fori_loop(0, iters, body, jnp.int32(0))
-
-    total = int(run(jnp.int32(1)))
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = int(run(jnp.int32(1)))
-        best = min(best, time.perf_counter() - t0)
-
-    info_bits = n_channels * n_info * iters
-    print(
-        json.dumps(
-            {
-                "engine": engine,
-                "config": f"{mod_name}/{n_fft}sc/cp{cp}/rayleigh ldpc-1/2",
-                "channels": n_channels,
-                "n_syms": n_syms,
-                "schedule": schedule,
-                "minsum_iters": ms_iters,
-                "info_mbps": info_bits / best / 1e6,
-                "ms_per_pass": best / iters * 1e3,
-                "errors_sample": total,
-            }
-        )
+    schedule = os.environ.get("SDR_BENCH_LDPC_SCHEDULE", "flooding")
+    ms_iters = env_int("SDR_BENCH_LDPC_ITERS", 25)
+    code = ldpc_code_for("1/2")
+    n_info = ldpc_codewords_per_channel(cfg, code) * code.k
+    time_program(
+        make_ldpc_fast_fn(cfg, iters=ms_iters, schedule=schedule),
+        (jax.random.PRNGKey(1),),
+        {"config": f"{cfg.modulation.value}/{cfg.ofdm.n_fft}sc/"
+                   f"cp{cfg.ofdm.cp_len}/rayleigh ldpc-1/2",
+         "channels": cfg.n_channels, "n_syms": cfg.n_symbols,
+         "schedule": schedule, "minsum_iters": ms_iters},
+        cfg.n_channels * n_info, "info_bits_per_s",
     )
 
 

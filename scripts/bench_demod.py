@@ -1,226 +1,65 @@
-"""Generic chained demod benchmark (any n_fft/cp/backend).
+"""Demod-chain timer at any numerology (the tuning companion of the
+repo-root bench.py, which is pinned to the headline 16QAM/256sc shape).
 
-The tuning companion of the repo-root bench.py (which is pinned to the
-headline 16QAM/256sc config): same chained-fori_loop methodology (all
-iterations inside ONE jitted loop, carry folded into the channel input,
-final host fetch — docs/PERF.md "Timing methodology"), but every knob
-is an env var so kernel variants can be A/B'd on hardware:
+  SDR_BENCH_NFFT=4096 SDR_BENCH_CP=512 SDR_BENCH_BATCH=4096 \
+  SDR_BENCH_SYMS=32 SDR_BENCH_TERMINAL=count python scripts/bench_demod.py
 
-  SDR_BENCH_NFFT=4096 SDR_BENCH_CP=512 SDR_BENCH_BATCH=64 \
-  SDR_BENCH_SYMS=8 SDR_TPU_DEMOD_BACKEND=fourstep \
-  python scripts/bench_demod.py
-
-Prints one JSON line with GS/s for the selected configuration.
+Terminals: ``sum`` (LLR sum), ``count`` (per-channel error counts) and
+``llr`` (the LLR plane, written out). Rate: complex samples/s entering
+the chain (CP included).
 """
 
 from __future__ import annotations
 
-import json
 import os
-import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np
-import jax
-import jax.numpy as jnp
-from jax import lax
+from _timing import env_int, time_program
 
 
 def main() -> None:
-    n_fft = int(os.environ.get("SDR_BENCH_NFFT", "4096"))
-    cp = int(os.environ.get("SDR_BENCH_CP", "512"))
-    batch = int(os.environ.get("SDR_BENCH_BATCH", "64"))
-    n_syms = int(os.environ.get("SDR_BENCH_SYMS", "8"))
-    iters = int(os.environ.get("SDR_BENCH_ITERS", "12"))
-    reps = int(os.environ.get("SDR_BENCH_REPS", "3"))
-    ebno_db = float(os.environ.get("SDR_BENCH_EBNO", "12.0"))
-    mod_name = os.environ.get("SDR_BENCH_MOD", "16qam")
-    backend = os.environ.get("SDR_TPU_DEMOD_BACKEND", "auto")
-    # "llr" times the LLR-producing chain (the headline terminal);
-    # "count" times the BER-counting terminal (in-kernel hard-decision
-    # compare where the fused count kernels apply — no LLR plane or
-    # bit-order transpose in HBM).
-    terminal = os.environ.get("SDR_BENCH_TERMINAL", "llr")
-    # "bf16" feeds the kernel bfloat16 sample planes: half the HBM
-    # read; the kernel's x-side hi/lo split collapses (bf16x2 pass
-    # count, W exact). Physically honest — SDR front ends deliver
-    # 8-14-bit samples, and our SC16 capture format is 16-bit int.
-    in_dtype = os.environ.get("SDR_BENCH_INPUT_DTYPE", "f32")
-    # "cl" benches the channels-last pipelined kernel (round 4:
-    # narrowband headline AND wideband n_fft <= 4096) on its native
-    # (time, channel) layout; "rows" the (batch, syms, sym_len) family.
-    layout = os.environ.get("SDR_BENCH_LAYOUT", "rows")
-    sym_len = n_fft + cp
+    import jax
+    import jax.numpy as jnp
 
     from sdr_tpu.core.config import Modulation
     from sdr_tpu.ops.channel import ebno_db_to_noise_var
-    from sdr_tpu.ops.demod import demod_chain, demod_count_chain, select_backend
+    from sdr_tpu.ops.demod import demod_chain, demod_count_chain
 
-    mod = Modulation(mod_name)
-    nv = float(ebno_db_to_noise_var(ebno_db, mod.bits_per_symbol))
-
-    if layout == "cl":
-        from sdr_tpu.kernels.demod_cl_pallas import (
-            demod_count_cl, demod_llr_cl, demod_sum_cl, dif_perm,
-        )
-
-        # llr_plane terminal: the LLR-MATERIALIZING chain (kernel-order
-        # plane, the coded-consumer form); SDR_BENCH_LLR_DTYPE=bf16
-        # halves the output write. Consumption cost is kept off the
-        # measured path via a tiny strided sample of the plane.
-        llr_dtype = (
-            jnp.bfloat16
-            if os.environ.get("SDR_BENCH_LLR_DTYPE", "f32") == "bf16"
-            else jnp.float32
-        )
-        perm = jnp.asarray(dif_perm(n_fft))
-
-        @jax.jit
-        def gen_cl(key):
-            kr, ki, kh = jax.random.split(key, 3)
-            scale = np.float32(1.0 / np.sqrt(2 * n_fft))
-            re = jax.random.normal(kr, (n_syms * sym_len, batch), jnp.float32) * scale
-            im = jax.random.normal(ki, (n_syms * sym_len, batch), jnp.float32) * scale
-            if in_dtype == "bf16":
-                re = re.astype(jnp.bfloat16)
-                im = im.astype(jnp.bfloat16)
-            hr = jax.random.normal(kh, (n_fft, batch), jnp.float32) * np.float32(np.sqrt(0.5))
-            hi = jax.random.normal(jax.random.fold_in(kh, 1), (n_fft, batch), jnp.float32) * np.float32(np.sqrt(0.5))
-            idx = jax.random.randint(
-                jax.random.fold_in(kh, 2), (n_syms * n_fft, batch), 0,
-                1 << mod.bits_per_symbol, jnp.int32,
-            )
-            return re, im, hr, hi, idx
-
-        @jax.jit
-        def run_cl(re, im, hr, hi, idx):
-            hr_d = hr[perm]
-            hi_d = hi[perm]
-            if terminal == "count":
-                def body(_, acc):
-                    err = demod_count_cl(
-                        re, im,
-                        hr_d + acc * jnp.float32(1e-30), hi_d,
-                        idx, cp, mod, nv, h_in_dif_order=True,
-                    )
-                    return acc + jnp.sum(err).astype(jnp.float32) * jnp.float32(1e-12)
-            elif terminal == "llr_plane":
-                def body(_, acc):
-                    llr = demod_llr_cl(
-                        re, im,
-                        hr_d + acc * jnp.float32(1e-30), hi_d,
-                        cp, mod, nv, out_dtype=llr_dtype,
-                        kernel_order=True, h_in_dif_order=True,
-                    )
-                    probe = jnp.sum(
-                        llr[::1021, ::127].astype(jnp.float32)
-                    )
-                    return acc + probe * jnp.float32(1e-12)
-            else:
-                def body(_, acc):
-                    s = demod_sum_cl(
-                        re, im, hr_d + acc * jnp.float32(1e-30), hi_d,
-                        cp, mod, nv, h_in_dif_order=True,
-                    )
-                    return acc + s * jnp.float32(1e-12)
-            return lax.fori_loop(0, iters, body, jnp.float32(0.0))
-
-        args = gen_cl(jax.random.PRNGKey(0))
-        _ = float(run_cl(*args))
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            _ = float(run_cl(*args))
-            best = min(best, time.perf_counter() - t0)
-        samples = batch * n_syms * sym_len * iters
-        print(json.dumps({
-            "config": f"{mod_name}/{n_fft}sc/cp{cp}/cl/{terminal}",
-            "backend": "cl",
-            "batch": batch,
-            "n_syms": n_syms,
-            "input_dtype": in_dtype,
-            "gs_per_s": samples / best / 1e9,
-            "ms_per_iter": best / iters * 1e3,
-        }))
-        return
+    n_fft = env_int("SDR_BENCH_NFFT", 4096)
+    cp = env_int("SDR_BENCH_CP", 512)
+    batch = env_int("SDR_BENCH_BATCH", 64)
+    n_syms = env_int("SDR_BENCH_SYMS", 8)
+    mod = Modulation(os.environ.get("SDR_BENCH_MOD", "16qam"))
+    terminal = os.environ.get("SDR_BENCH_TERMINAL", "sum")
+    nv = float(ebno_db_to_noise_var(12.0, mod.bits_per_symbol))
+    sym_len = n_fft + cp
 
     @jax.jit
     def gen(key):
-        kr, ki, kh = jax.random.split(key, 3)
-        shape = (batch, n_syms, sym_len)
-        scale = np.float32(1.0 / np.sqrt(2 * n_fft))
-        re = jax.random.normal(kr, shape, jnp.float32) * scale
-        im = jax.random.normal(ki, shape, jnp.float32) * scale
-        if in_dtype == "bf16":
-            re = re.astype(jnp.bfloat16)
-            im = im.astype(jnp.bfloat16)
-        hr = jax.random.normal(kh, (batch, 1, n_fft), jnp.float32) * np.float32(
-            np.sqrt(0.5)
-        )
-        hi = jax.random.normal(
-            jax.random.fold_in(kh, 1), (batch, 1, n_fft), jnp.float32
-        ) * np.float32(np.sqrt(0.5))
+        kr, ki, kh, kx = jax.random.split(key, 4)
+        scale = jnp.float32((2.0 * n_fft) ** -0.5)
+        re = jax.random.normal(kr, (batch, n_syms, sym_len)) * scale
+        im = jax.random.normal(ki, (batch, n_syms, sym_len)) * scale
+        hr = jax.random.normal(kh, (batch, 1, n_fft)) * jnp.float32(0.5**0.5)
+        hi = jax.random.normal(jax.random.fold_in(kh, 1), (batch, 1, n_fft))
         idx = jax.random.randint(
-            jax.random.fold_in(kh, 2), (batch, n_syms, n_fft), 0,
-            1 << mod.bits_per_symbol, jnp.int32,
+            kx, (batch, n_syms, n_fft), 0, 1 << mod.bits_per_symbol
         )
-        return re, im, hr, hi, idx
+        return re, im, hr, hi * jnp.float32(0.5**0.5), idx
 
-    @jax.jit
-    def run(re, im, hr, hi, idx):
-        if terminal == "count":
-            def body(_, acc):
-                err = demod_count_chain(
-                    re, im, hr + acc * jnp.float32(1e-30), hi, idx, cp,
-                    mod, nv, backend=None if backend == "auto" else backend,
-                )
-                return acc + jnp.sum(err).astype(jnp.float32) * jnp.float32(1e-12)
-        else:
-            def body(_, acc):
-                llr_sum = demod_chain(
-                    re, im, hr + acc * jnp.float32(1e-30), hi, cp, mod, nv,
-                    reduce_sum=True, backend=None if backend == "auto" else backend,
-                )
-                return acc + llr_sum * jnp.float32(1e-12)
-
-        return lax.fori_loop(0, iters, body, jnp.float32(0.0))
-
-    resolved = (
-        backend
-        if backend != "auto"
-        else select_backend(
-            (batch, n_syms, sym_len), (batch, 1, n_fft), cp, mod,
-            jax.default_backend(),
-        )
-    )
-    args = gen(jax.random.PRNGKey(0))
-    _ = float(run(*args))  # compile + one synced execution
-
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = float(run(*args))
-        best = min(best, time.perf_counter() - t0)
-
-    samples = batch * n_syms * sym_len * iters
-    print(
-        json.dumps(
-            {
-                "config": f"{mod.value}/{n_fft}sc/cp{cp}",
-                "backend": resolved,
-                "terminal": terminal,
-                "batch": batch,
-                "n_syms": n_syms,
-                "gs_per_s": samples / best / 1e9,
-                "ms_per_iter": best / iters * 1e3,
-            }
-        )
-    )
-    print(
-        f"# platform={jax.default_backend()} iters={iters} best={best*1e3:.2f}ms",
-        file=sys.stderr,
+    if terminal == "count":
+        fn = jax.jit(lambda re, im, hr, hi, idx: demod_count_chain(
+            re, im, hr, hi, idx, cp, mod, nv))
+    elif terminal == "llr":
+        fn = jax.jit(lambda re, im, hr, hi, idx: demod_chain(
+            re, im, hr, hi, cp, mod, nv))
+    else:
+        fn = jax.jit(lambda re, im, hr, hi, idx: demod_chain(
+            re, im, hr, hi, cp, mod, nv, reduce_sum=True))
+    time_program(
+        fn, jax.block_until_ready(gen(jax.random.PRNGKey(0))),
+        {"config": f"{mod.value}/{n_fft}sc/cp{cp}", "terminal": terminal,
+         "batch": batch, "n_syms": n_syms},
+        batch * n_syms * sym_len, "samples_per_s",
     )
 
 

@@ -1,44 +1,30 @@
-"""Chained LDPC decoder throughput: decoded information bits/s.
-
-Min-sum is VPU work (rolls, min/sign tracking) on (batch, Z) lanes —
-this measures what the TPU formulation actually delivers. Chained
-methodology as everywhere (docs/PERF.md): all reps inside one jitted
-fori_loop, the carry perturbing the LLR input, final scalar fetched.
+"""LDPC decoder timer: decoded information bits/s.
 
 Knobs: SDR_BENCH_LDPC_RATE (1/2|2/3|3/4), SDR_BENCH_LDPC_CW (batch of
 codewords), SDR_BENCH_LDPC_ITERS (min-sum iterations),
-SDR_BENCH_ITERS (chained loop trips), SDR_BENCH_REPS.
+SDR_BENCH_LDPC_SCHEDULE (flooding | layered — about half the
+iterations for the same waterfall).
 """
 
 from __future__ import annotations
 
-import json
 import os
-import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np
-import jax
-import jax.numpy as jnp
-from jax import lax
+from _timing import env_int, time_program
 
 
 def main() -> None:
-    rate = os.environ.get("SDR_BENCH_LDPC_RATE", "1/2")
-    # flooding (decision-identical default) | layered (≈half the
-    # iterations for the same waterfall; set SDR_BENCH_LDPC_ITERS=13).
-    schedule = os.environ.get("SDR_BENCH_LDPC_SCHEDULE", "flooding")
-    backend = os.environ.get("SDR_BENCH_LDPC_BACKEND", "auto")
-    n_cw = int(os.environ.get("SDR_BENCH_LDPC_CW", "256"))
-    ms_iters = int(os.environ.get("SDR_BENCH_LDPC_ITERS", "25"))
-    iters = int(os.environ.get("SDR_BENCH_ITERS", "8"))
-    reps = int(os.environ.get("SDR_BENCH_REPS", "3"))
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
 
     from sdr_tpu.link.coded import ldpc_code_for
     from sdr_tpu.ops.ldpc import ldpc_decode, ldpc_encode
 
+    rate = os.environ.get("SDR_BENCH_LDPC_RATE", "1/2")
+    schedule = os.environ.get("SDR_BENCH_LDPC_SCHEDULE", "flooding")
+    n_cw = env_int("SDR_BENCH_LDPC_CW", 256)
+    ms_iters = env_int("SDR_BENCH_LDPC_ITERS", 25)
     code = ldpc_code_for(rate)
     rng = np.random.default_rng(0)
     info = jnp.asarray(rng.integers(0, 2, (n_cw, code.k)), jnp.int8)
@@ -48,45 +34,13 @@ def main() -> None:
     x = 1.0 - 2.0 * np.asarray(cw, np.float32)
     y = x + rng.standard_normal(x.shape).astype(np.float32) * sigma
     llr = jnp.asarray(2.0 * y / sigma**2)
-
-    @jax.jit
-    def run(llr):
-        def body(_, carry):
-            acc, l = carry
-            hard = ldpc_decode(code, l, iters=ms_iters, backend=backend,
-                               schedule=schedule)
-            s = jnp.sum(hard, dtype=jnp.float32)
-            # Perturb the input by a decode-dependent epsilon so no
-            # iteration is hoistable.
-            return acc + s, l + s * jnp.float32(1e-30)
-
-        acc, _ = lax.fori_loop(0, iters, body, (jnp.float32(0.0), llr))
-        return acc
-
-    _ = float(run(llr))  # compile + one synced execution
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = float(run(llr))
-        best = min(best, time.perf_counter() - t0)
-
-    info_bits = n_cw * code.k * iters
-    print(
-        json.dumps(
-            {
-                "code": f"qc-ldpc nb=24 z=128 rate {rate}",
-                "schedule": schedule,
-                "backend": backend,
-                "minsum_iters": ms_iters,
-                "codewords": n_cw,
-                "info_mbps": info_bits / best / 1e6,
-                "ms_per_decode_batch": best / iters * 1e3,
-            }
-        )
-    )
-    print(
-        f"# platform={jax.default_backend()} iters={iters} best={best*1e3:.2f}ms",
-        file=sys.stderr,
+    time_program(
+        jax.jit(lambda l: ldpc_decode(
+            code, l, iters=ms_iters, schedule=schedule)),
+        (llr,),
+        {"code": f"qc-ldpc nb=24 z=128 rate {rate}", "schedule": schedule,
+         "minsum_iters": ms_iters, "codewords": n_cw},
+        n_cw * code.k, "info_bits_per_s",
     )
 
 

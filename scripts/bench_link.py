@@ -1,52 +1,28 @@
-"""Chained end-to-end link-simulation benchmark: fast engine vs MC kernel.
+"""End-to-end link-simulation timer: the fast engine or the MC driver.
 
 Times the full Monte-Carlo SIMULATION (bits → TX → channel → noise →
 demod → count), not just the receive chain — the number that governs
-how fast BER sweeps converge. Two engines:
+how fast BER sweeps converge.
 
-  SDR_BENCH_ENGINE=fast   link.fast (fused TX/count kernels + XLA
-                          channel + threefry noise between them)
-  SDR_BENCH_ENGINE=mc     kernels/mc_pallas via link.mc (everything in
-                          one kernel, hardware PRNG, zero HBM
-                          intermediates)
+  SDR_BENCH_ENGINE=fast   link.fast, one pass per call
+  SDR_BENCH_ENGINE=mc     link.mc, SDR_BENCH_PASSES passes per call
 
-Same chained-fori_loop methodology as bench.py (docs/PERF.md "Timing
-methodology"): iterations run inside one jitted loop with the carry
-folded into each iteration's seed/key, final scalar fetched to host.
-
-Accounting: N-only complex samples (n_channels · n_symbols · n_fft per
-pass, CP excluded) for BOTH engines, matching docs/PERF.md round 2b.
-
-Knobs: SDR_BENCH_NFFT, SDR_BENCH_CP, SDR_BENCH_CHANNELS,
-SDR_BENCH_SYMS, SDR_BENCH_ITERS, SDR_BENCH_REPS, SDR_BENCH_EBNO,
-SDR_BENCH_MOD, SDR_BENCH_CHANNEL_MODEL (awgn|rayleigh_flat|...).
+Rate: N-only complex samples/s (n_channels · n_symbols · n_fft per pass,
+CP excluded). Sizes and link: SDR_BENCH_NFFT, SDR_BENCH_CP,
+SDR_BENCH_CHANNELS, SDR_BENCH_SYMS, SDR_BENCH_EBNO, SDR_BENCH_MOD,
+SDR_BENCH_CHANNEL_MODEL (awgn|rayleigh_flat|...), SDR_BENCH_DFT=1
+(full-grid SC-FDMA).
 """
 
 from __future__ import annotations
 
-import json
 import os
-import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-import jax.numpy as jnp
-from jax import lax
+from _timing import env_int, time_program
 
 
 def main() -> None:
-    n_fft = int(os.environ.get("SDR_BENCH_NFFT", "256"))
-    cp = int(os.environ.get("SDR_BENCH_CP", "64"))
-    n_channels = int(os.environ.get("SDR_BENCH_CHANNELS", "512"))
-    n_syms = int(os.environ.get("SDR_BENCH_SYMS", "64"))
-    iters = int(os.environ.get("SDR_BENCH_ITERS", "8"))
-    reps = int(os.environ.get("SDR_BENCH_REPS", "3"))
-    ebno_db = float(os.environ.get("SDR_BENCH_EBNO", "12.0"))
-    mod_name = os.environ.get("SDR_BENCH_MOD", "16qam")
-    model_name = os.environ.get("SDR_BENCH_CHANNEL_MODEL", "awgn")
-    engine = os.environ.get("SDR_BENCH_ENGINE", "mc")
+    import jax
 
     from sdr_tpu.core.config import (
         ChannelConfig,
@@ -57,12 +33,16 @@ def main() -> None:
         OFDMConfig,
     )
 
+    n_fft = env_int("SDR_BENCH_NFFT", 256)
+    model_name = os.environ.get("SDR_BENCH_CHANNEL_MODEL", "awgn")
+    engine = os.environ.get("SDR_BENCH_ENGINE", "fast")
+    passes = env_int("SDR_BENCH_PASSES", 8) if engine == "mc" else 1
     cfg = LinkConfig(
-        ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
-        modulation=Modulation(mod_name),
+        ofdm=OFDMConfig(n_fft=n_fft, cp_len=env_int("SDR_BENCH_CP", 64)),
+        modulation=Modulation(os.environ.get("SDR_BENCH_MOD", "16qam")),
         channel=ChannelConfig(
             model=ChannelModel(model_name),
-            ebno_db=ebno_db,
+            ebno_db=float(os.environ.get("SDR_BENCH_EBNO", "12.0")),
             # Selective models get a 3-tap PDP; time-varying ones a
             # moderate Doppler (both ignored by the flat/AWGN models).
             pdp=(
@@ -73,70 +53,29 @@ def main() -> None:
             doppler_norm=0.02,
         ),
         equalizer=Equalizer.MMSE,
-        n_channels=n_channels,
-        n_symbols=n_syms,
-        # SDR_BENCH_DFT=1: full-grid SC-FDMA (SC-FDE receive).
-        dft_spread=bool(int(os.environ.get("SDR_BENCH_DFT", "0"))),
+        n_channels=env_int("SDR_BENCH_CHANNELS", 512),
+        n_symbols=env_int("SDR_BENCH_SYMS", 64),
+        dft_spread=bool(env_int("SDR_BENCH_DFT", 0)),
     )
-
     if engine == "mc":
-        from sdr_tpu.link.mc import mc_simulate
+        from sdr_tpu.link.mc import make_mc_fn
 
-        @jax.jit
-        def run(seed):
-            errs, _ = mc_simulate(cfg, seed, iters=iters)
-            return jnp.sum(errs)
-
-        args = (jnp.int32(1),)
+        fn, args = make_mc_fn(cfg, iters=passes), (1,)
     elif engine == "fast":
-        from sdr_tpu.link.fast import fast_simulate
+        from sdr_tpu.link.fast import make_fast_fn
 
-        # SDR_BENCH_FAST_LAYOUT=rows|cl|auto A/Bs the demod layout
-        # (auto resolves to the channels-last kernel where it applies).
-        fast_layout = os.environ.get("SDR_BENCH_FAST_LAYOUT", "auto")
-
-        @jax.jit
-        def run(seed):
-            def body(i, acc):
-                # Fold the carry into the key so no iteration is
-                # hoistable or dead-code-eliminable.
-                key = jax.random.fold_in(
-                    jax.random.PRNGKey(seed), i + (acc & 1)
-                )
-                errs, _ = fast_simulate(cfg, key, layout=fast_layout)
-                return acc + jnp.sum(errs)
-
-            return lax.fori_loop(0, iters, body, jnp.int32(0))
-
-        args = (jnp.int32(1),)
+        fn, args = make_fast_fn(cfg), (jax.random.PRNGKey(1),)
     else:
         raise SystemExit(f"unknown SDR_BENCH_ENGINE {engine!r}")
-
-    total = int(run(*args))  # compile + one synced execution
-
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = int(run(*args))
-        best = min(best, time.perf_counter() - t0)
-
-    samples = n_channels * n_syms * n_fft * iters  # N-only accounting
-    print(
-        json.dumps(
-            {
-                "engine": engine,
-                "config": f"{mod_name}/{n_fft}sc/cp{cp}/{model_name}",
-                "channels": n_channels,
-                "n_syms": n_syms,
-                "gs_per_s_n_only": samples / best / 1e9,
-                "ms_per_iter": best / iters * 1e3,
-                "bit_errors_sample": total,
-            }
-        )
-    )
-    print(
-        f"# platform={jax.default_backend()} iters={iters} best={best*1e3:.2f}ms",
-        file=sys.stderr,
+    time_program(
+        fn, args,
+        {"engine": engine,
+         "config": f"{cfg.modulation.value}/{n_fft}sc/"
+                   f"cp{cfg.ofdm.cp_len}/{model_name}",
+         "channels": cfg.n_channels, "n_syms": cfg.n_symbols,
+         "passes": passes},
+        cfg.n_channels * cfg.n_symbols * n_fft * passes,
+        "samples_per_s_n_only",
     )
 
 

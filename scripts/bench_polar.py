@@ -1,39 +1,22 @@
-"""Chained CA-SCL polar decoder throughput: decoded payload bits/s.
-
-SCL is bit-serial by construction (one lax.scan step per code bit with
-a top_k fork) — the codeword batch axis is where the TPU lanes go.
-This measures what the scan formulation delivers so the capability
-path has an honest number next to the LDPC/Viterbi ones. Chained
-methodology as everywhere (docs/PERF.md): all reps inside one jitted
-fori_loop, the carry perturbing the LLR input, final scalar fetched.
+"""CA-SCL polar decoder timer: decoded payload bits/s.
 
 Knobs: SDR_BENCH_POLAR_N (block length), SDR_BENCH_POLAR_LIST,
-SDR_BENCH_POLAR_CW (codeword batch), SDR_BENCH_ITERS (chained trips),
-SDR_BENCH_REPS, SDR_BENCH_POLAR_DECODER (fast|scan — fast is the
-round-4 fast-SSCL tree decoder, decision-identical to the scan).
+SDR_BENCH_POLAR_CW (codeword batch), SDR_BENCH_POLAR_DECODER (fast |
+scan — fast is the fast-SSCL tree decoder, decision-identical to the
+scan).
 """
 
 from __future__ import annotations
 
-import json
 import os
-import sys
-import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np
-import jax
-import jax.numpy as jnp
-from jax import lax
+from _timing import env_int, time_program
 
 
 def main() -> None:
-    N = int(os.environ.get("SDR_BENCH_POLAR_N", "256"))
-    L = int(os.environ.get("SDR_BENCH_POLAR_LIST", "8"))
-    n_cw = int(os.environ.get("SDR_BENCH_POLAR_CW", "256"))
-    iters = int(os.environ.get("SDR_BENCH_ITERS", "8"))
-    reps = int(os.environ.get("SDR_BENCH_REPS", "3"))
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
 
     from sdr_tpu.ops.polar import (
         make_polar_code,
@@ -42,53 +25,26 @@ def main() -> None:
         polar_encode_payload,
     )
 
+    N = env_int("SDR_BENCH_POLAR_N", 256)
+    L = env_int("SDR_BENCH_POLAR_LIST", 8)
+    n_cw = env_int("SDR_BENCH_POLAR_CW", 256)
     which = os.environ.get("SDR_BENCH_POLAR_DECODER", "fast")
     decode = polar_decode_scl_fast if which == "fast" else polar_decode_scl
-
     code = make_polar_code(N, N // 2, crc="crc11")
     rng = np.random.default_rng(0)
-    pay = jnp.asarray(
-        rng.integers(0, 2, (n_cw, code.payload_len)), jnp.int8
-    )
+    pay = jnp.asarray(rng.integers(0, 2, (n_cw, code.payload_len)), jnp.int8)
     cw = polar_encode_payload(pay, code)
     esno = 10 ** (2.5 / 10.0) * code.rate
     sigma = np.sqrt(1.0 / (2.0 * esno))
     x = 1.0 - 2.0 * np.asarray(cw, np.float32)
     y = x + rng.standard_normal(x.shape).astype(np.float32) * sigma
     llr = jnp.asarray(2.0 * y / sigma**2)
-
-    @jax.jit
-    def run(llr):
-        def body(_, carry):
-            acc, l = carry
-            hard = decode(l, code, list_size=L)
-            s = jnp.sum(hard, dtype=jnp.float32)
-            return acc + s, l + s * jnp.float32(1e-30)
-
-        acc, _ = lax.fori_loop(0, iters, body, (jnp.float32(0.0), llr))
-        return acc
-
-    _ = float(run(llr))  # compile + one synced execution
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = float(run(llr))
-        best = min(best, time.perf_counter() - t0)
-
-    payload_bits = n_cw * code.payload_len * iters
-    print(
-        json.dumps(
-            {
-                "code": f"CA-polar ({N},{code.k}) CRC-11 SCL-{L} [{which}]",
-                "codewords": n_cw,
-                "payload_mbps": payload_bits / best / 1e6,
-                "ms_per_decode_batch": best / iters * 1e3,
-            }
-        )
-    )
-    print(
-        f"# platform={jax.default_backend()} iters={iters} best={best*1e3:.2f}ms",
-        file=sys.stderr,
+    time_program(
+        jax.jit(lambda l: decode(l, code, list_size=L)),
+        (llr,),
+        {"code": f"CA-polar ({N},{code.k}) CRC-11 SCL-{L} [{which}]",
+         "codewords": n_cw},
+        n_cw * code.payload_len, "payload_bits_per_s",
     )
 
 

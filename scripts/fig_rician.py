@@ -1,9 +1,8 @@
 """Rician K-family BER curves (measured vs exact MGF-integral theory).
 
 Produces docs/figures/ber_rician_family.png: 16-QAM/128sc flat Rician
-at K ∈ {0, 2, 4, 10} swept over Eb/N0 on the fast link (jnp backend —
-statistically exact), with the exact theory for each K as dashed
-context curves in a companion panel pairing. K=0 doubles as a
+at K ∈ {0, 2, 4, 10} swept over Eb/N0 on the fast link, with the exact
+theory for each K as dashed context curves in a companion panel pairing. K=0 doubles as a
 cross-check of the Rayleigh closed form.
 
 Run on CPU: JAX_PLATFORMS is forced below (fades are the statistical
@@ -60,7 +59,7 @@ def main() -> None:
                 n_symbols=4,
                 n_channels=4096,
             )
-            err, cnt = make_fast_fn(cfg, backend="jnp")(
+            err, cnt = make_fast_fn(cfg)(
                 jax.random.PRNGKey(int(e * 100 + K))
             )
             ber = float(np.asarray(err).sum()) / float(np.asarray(cnt).sum())

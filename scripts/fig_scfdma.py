@@ -12,7 +12,7 @@ estimated CSI —
 The visual story: ZF-FDE pays a notch's noise enhancement on EVERY
 despread symbol and sits above OFDM; MMSE-FDE caps the enhancement and
 pulls SC-FDMA under the OFDM curve across the sweep (the round-3
-receiver upgrade, docs/RESULTS.md).
+receiver upgrade).
 """
 
 from __future__ import annotations

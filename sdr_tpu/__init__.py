@@ -1,13 +1,13 @@
-"""sdr_tpu — a TPU-native SDR link-simulation framework.
+"""sdr_tpu — an accelerator SDR link-simulation framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 erithion/SDR reference library (header-only C++ FFT / 16-QAM / OFDM
 loopback stack), extended into a full link simulator:
 
 - ``sdr_tpu.ops``      — reference-contract signal ops (FFT/IFFT, OFDM
   cyclic prefix, QAM mapping BPSK..1024QAM, AWGN/fading channels,
   ZF/MMSE equalizers, max-log LLR soft demapper).
-- ``sdr_tpu.kernels``  — Pallas TPU kernels + MXU matmul-DFT FFT backends.
+- ``sdr_tpu.kernels``  — the matmul-DFT FFT backend.
 - ``sdr_tpu.link``     — end-to-end jitted link pipelines and BER harness.
 - ``sdr_tpu.parallel`` — device-mesh sharding: channel-batch data
   parallelism and time-block sequence parallelism with halo exchange.

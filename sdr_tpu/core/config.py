@@ -175,7 +175,7 @@ class MIMOScheme(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class MIMOConfig:
     """Antenna configuration. The reference is strictly SISO
-    (ofdm.hpp:13-54 processes one stream); this is new TPU-framework
+    (ofdm.hpp:13-54 processes one stream); this is new framework
     capability — antenna axes are ordinary batch axes in the array
     program."""
 

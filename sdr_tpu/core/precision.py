@@ -2,8 +2,9 @@
 
 The reference templates everything over float/double and manages FP
 drift by renormalizing its twiddle recurrence every 32 steps
-(/root/reference/lib/inc/fft.hpp:144-150) — a scalar-CPU artifact. On
-TPU there is no complex128/float64 fast path, so the explicit policy is:
+(/root/reference/lib/inc/fft.hpp:144-150) — a scalar-CPU artifact.
+Accelerators have no complex128/float64 fast path, so the explicit
+policy is:
 
 - compute dtype: complex64 (float32 re/im) — twiddles are precomputed
   tables, not recurrences, so there is no drift to manage;

@@ -1,9 +1,9 @@
-"""MXU matmul-DFT: Cooley–Tukey four-step FFT as dense matrix products.
+"""Matmul DFT: Cooley–Tukey four-step FFT as dense matrix products.
 
 The reference computes FFTs with a scalar radix-2 butterfly loop and a
-twiddle recurrence (fft.hpp:87-155). On TPU the FLOPs live in the MXU
-(128x128 systolic array), so the TPU-native formulation is the classic
-*four-step* factorization: for N = N1*N2,
+twiddle recurrence (fft.hpp:87-155). This module is the classic
+*four-step* factorization, which turns the transform into matrix
+products: for N = N1*N2,
 
     X[N1*k2 + k1] = sum_n2 W_N2[n2,k2] * ( T[k1,n2] *
                     sum_n1 x[N2*n1 + n2] * W_N1[n1,k1] )
@@ -11,21 +11,20 @@ twiddle recurrence (fft.hpp:87-155). On TPU the FLOPs live in the MXU
 i.e. (1) reshape to (N1, N2), (2) DFT of size N1 down the columns — a
 matmul, (3) pointwise twiddle T[k1,n2] = e^{-+2 pi i k1 n2 / N},
 (4) DFT of size N2 along the rows — another matmul — then transpose and
-flatten. Sub-DFTs <= 128 points are direct DFT-matrix products that XLA
-tiles straight onto the MXU; larger factors recurse.
+flatten. Sub-DFTs <= 128 points are direct DFT-matrix products; larger
+factors recurse.
 
 Complex arithmetic runs as real matmuls: with x = xr + i*xi and
 W = Wr + i*Wi,   X = (xr@Wr - xi@Wi) + i*(xr@Wi + xi@Wr).
-Matmuls use HIGHEST precision (bf16x6 passes on TPU) to hold the
+Matmuls use HIGHEST precision (full f32, never TF32 or bf16) to hold the
 reference's float tolerance (abs 1e-5 / rel 1e-6, fft_test.cpp:48-64);
 twiddles are precomputed float64 tables cast to f32 — no recurrence, so
 none of the drift the reference renormalizes against (fft.hpp:144-150).
 
 FLOP cost is O(N*(N1+N2)) complex MACs per transform vs O(N log N) for
-radix-2 — a ~4x FLOP overhead at N=4096 that buys ~100x higher
-throughput silicon. For the batched small/medium transforms of the OFDM
-pipeline this is the speed-of-light path; measured A/B vs XLA's FFT in
-bench.py.
+radix-2. It is an explicit backend (ops.fft ``backend="matmul"``); the
+default transform is the platform FFT library. ``python -m sdr_tpu
+autotune`` times both on the current device.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# Largest direct (single-matmul) DFT. 128 matches the MXU tile edge.
+# Largest direct (single-matmul) DFT.
 _DIRECT_MAX = 128
 
 
@@ -68,7 +67,7 @@ def _split(n: int) -> tuple[int, int]:
 
 
 def _cmatmul(xr, xi, wr, wi):
-    """Complex (batch..., m, n) @ (n, k) as four real MXU matmuls."""
+    """Complex (batch..., m, n) @ (n, k) as four real matmuls."""
     dot = functools.partial(
         jnp.matmul, precision=lax.Precision.HIGHEST, preferred_element_type=jnp.float32
     )
@@ -107,7 +106,7 @@ def _dft_planar(xr, xi, inverse: bool):
 
 
 def matmul_fft(x: jnp.ndarray, inverse: bool = False) -> jnp.ndarray:
-    """(I)FFT over the last axis via MXU matmul-DFT.
+    """(I)FFT over the last axis via the matmul DFT.
 
     Semantics match fft::fft2 / fft::ifft2 (unscaled forward; inverse
     scaled by 1/N, fft.hpp:176-205).

@@ -57,11 +57,8 @@ DEFAULT_LADDER: tuple = (
     (Modulation.QAM64, "ldpc", "2/3"),
     (Modulation.QAM64, "conv", "3/4"),
     (Modulation.QAM64, "ldpc", "3/4"),
-    # Round-4 v3 rungs: the full reference roster (modulation.hpp:13-14,
-    # 70-72 names 256/1024-QAM as "5G" tags). Dense constellations pin
-    # MXU precision to bf16x2+ during their simulations (the PERF.md
-    # per-modulation BER-gate table: single-pass bf16 moves 1024-QAM
-    # error counts +10% — _pin_precision below).
+    # The full reference roster (modulation.hpp:13-14, 70-72 names
+    # 256/1024-QAM as "5G" tags).
     (Modulation.QAM256, "ldpc", "2/3"),
     (Modulation.QAM256, "conv", "3/4"),
     (Modulation.QAM256, "ldpc", "3/4"),
@@ -75,8 +72,7 @@ def _norm_rung(rung) -> tuple:
     (mod, family, rate) means OFDM; 4-tuples add the WAVEFORM
     dimension (mod, family, rate, "ofdm"|"scfdma") — round 4: under a
     PA the waveform choice IS a link-adaptation decision (SC-FDMA's
-    constant modulus buys threshold at low backoff; docs/RESULTS.md
-    round 2e/3)."""
+    constant modulus buys threshold at low backoff)."""
     if len(rung) == 2:
         return rung[0], "conv", rung[1], "ofdm"
     if len(rung) == 3:
@@ -95,42 +91,6 @@ def waveform_ladder(ladder=DEFAULT_LADDER) -> tuple:
         out.append((mod, family, rate, "ofdm"))
         out.append((mod, family, rate, "scfdma"))
     return tuple(out)
-
-
-import contextlib as _contextlib
-import os as _os
-
-
-@_contextlib.contextmanager
-def _pin_precision(mod: Modulation):
-    """Pin MXU precision to bf16x2+ while tracing/running dense-
-    constellation rungs (> 64-QAM): the hardware BER gate table
-    (docs/PERF.md) shows single-pass bf16 is BER-neutral through
-    64-QAM but moves 1024-QAM error counts +10% — an adaptation
-    ladder must not let a bench-mode env leak threshold errors into
-    its dense rungs.
-
-    Mutates the process-global environment around tracing — NOT safe
-    under concurrent calibrations in one process (run them
-    sequentially, as the CLI does). Restores the variable's exact
-    prior state, including absence.
-    """
-    raw = _os.environ.get("SDR_TPU_MXU_PRECISION")
-    cur = raw if raw is not None else "bf16x3"
-    needs_pin = (
-        mod.bits_per_symbol > 6 and cur.lower() in ("default", "bf16x1")
-    )
-    if not needs_pin:
-        yield
-        return
-    _os.environ["SDR_TPU_MXU_PRECISION"] = "bf16x2"
-    try:
-        yield
-    finally:
-        if raw is None:
-            _os.environ.pop("SDR_TPU_MXU_PRECISION", None)
-        else:
-            _os.environ["SDR_TPU_MXU_PRECISION"] = raw
 
 
 def efficiency(mod: Modulation, rate: str, family: str = "conv") -> float:
@@ -210,12 +170,9 @@ def calibrate(
                 ),
             )
             try:
-                with _pin_precision(mod):
-                    errors, counted = make_family_fn(
-                        cfg, family, rate=rate
-                    )(key)
-                    errors = np.asarray(errors)
-                    counted = np.asarray(counted)
+                errors, counted = make_family_fn(cfg, family, rate=rate)(key)
+                errors = np.asarray(errors)
+                counted = np.asarray(counted)
             except ValueError:
                 return None
             ber = float(errors.sum()) / float(counted.sum())
@@ -328,12 +285,9 @@ def simulate_adaptive(
                     ),
                 ),
             )
-            with _pin_precision(t.modulation):
-                err, cnt = make_family_fn(c, t.family, rate=t.rate)(
-                    jax.random.fold_in(key, int(sub[0]))
-                )
-                err = np.asarray(err)
-                cnt = np.asarray(cnt)
+            err, cnt = make_family_fn(c, t.family, rate=t.rate)(
+                jax.random.fold_in(key, int(sub[0]))
+            )
             errors[sub] = np.asarray(err)
             counted[sub] = np.asarray(cnt)
     uses = base.n_symbols * base.ofdm.n_fft  # subcarrier uses per frame

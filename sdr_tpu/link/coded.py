@@ -221,15 +221,11 @@ def polar_codewords_per_channel(cfg: LinkConfig, block_len: int) -> int:
     return n_cw
 
 
-def _polar_one(cfg: LinkConfig, key: jax.Array, code, n_cw: int,
-               list_size: int):
-    import os
-
-    from sdr_tpu.ops.polar import (
-        polar_decode_scl,
-        polar_decode_scl_fast,
-        polar_encode_payload,
-    )
+def polar_llrs(cfg: LinkConfig, key: jax.Array, code, n_cw: int):
+    """Everything before the decoder, for one channel: its payload
+    (n_cw, payload_len) int8 and the deinterleaved decoder input LLRs
+    (n_cw, block_len)."""
+    from sdr_tpu.ops.polar import polar_encode_payload
 
     frame_bits = cfg.n_data_symbols * cfg.bits_per_ofdm_symbol
     sent = n_cw * code.block_len
@@ -242,17 +238,31 @@ def _polar_one(cfg: LinkConfig, key: jax.Array, code, n_cw: int,
     # Whole-frame interleave, same convention as the conv/LDPC paths.
     frame = interleave(jnp.zeros((frame_bits,), jnp.int8).at[:sent].set(cw))
     llr_cw = deinterleave(_frame_llrs(cfg, key, frame))[:sent]
-    # Round-4 default: the fast-SSCL tree decoder — decision-identical
-    # to the scan decoder (tests/test_polar.py) at ~50× its throughput
-    # (docs/PERF.md). SDR_TPU_POLAR_DECODER=scan reverts.
+    return payload, llr_cw.reshape(n_cw, code.block_len)
+
+
+def polar_decode(llr_cw: jnp.ndarray, code, list_size: int) -> jnp.ndarray:
+    """CA-SCL decode of (..., block_len) LLRs → (..., payload_len) bits.
+
+    Default: the fast-SSCL tree decoder — decision-identical to the
+    scan decoder (tests/test_polar.py) in far fewer sequential steps.
+    SDR_TPU_POLAR_DECODER=scan selects the scan decoder."""
+    import os
+
+    from sdr_tpu.ops.polar import polar_decode_scl, polar_decode_scl_fast
+
     decode = (
         polar_decode_scl
         if os.environ.get("SDR_TPU_POLAR_DECODER", "fast") == "scan"
         else polar_decode_scl_fast
     )
-    decoded = decode(
-        llr_cw.reshape(n_cw, code.block_len), code, list_size=list_size
-    )
+    return decode(llr_cw, code, list_size=list_size)
+
+
+def _polar_one(cfg: LinkConfig, key: jax.Array, code, n_cw: int,
+               list_size: int):
+    payload, llr_cw = polar_llrs(cfg, key, code, n_cw)
+    decoded = polar_decode(llr_cw, code, list_size)
     errors = jnp.sum((decoded != payload).astype(jnp.int32))
     return errors, jnp.int32(n_cw * code.payload_len)
 

@@ -1,12 +1,10 @@
-"""Fast batched link: fused-kernel TX → channel → fused-kernel RX.
+"""Fast batched link: TX → channel → RX at batch level.
 
 The production throughput path. Where link.pipeline composes per-channel
 ops under vmap (maximum flexibility, arbitrary shapes), this module runs
-the whole link at BATCH level on 3-D (n_channels, n_symbols, ·) arrays
-so the fused Pallas kernels (kernels/tx_pallas, kernels/demod_pallas)
-own the hot loops; the channel sits between them as fused XLA
-elementwise work on planar arrays. Falls back to the jnp compositions
-off-TPU or for unsupported shapes.
+the whole link at BATCH level on 3-D (n_channels, n_symbols, ·) arrays,
+so XLA sees each stage (payload draw, TX transform, channel, demod,
+count) as one batched operation over every channel.
 
 Note: this path draws source SYMBOL INDICES directly (uniform over the
 constellation — the same distribution as i.i.d. bits, but a different
@@ -26,68 +24,24 @@ from sdr_tpu.core import prng
 from sdr_tpu.core.config import ChannelModel, LinkConfig
 from sdr_tpu.ops import channel as chan
 from sdr_tpu.ops.demod import demod_count_chain
-from sdr_tpu.ops.modulation import _ints_to_bits
+from sdr_tpu.ops.modulation import _ints_to_bits, modulate
 from sdr_tpu.ops.ofdm import ofdm_tx
 
 
-def _tx(cfg: LinkConfig, idx: jnp.ndarray, backend: str):
-    """(B,S,N) indices → planar (re, im) (B,S,sym_len).
-
-    The wideband kernel variant is selectable via
-    ``SDR_TPU_TX_WIDEBAND=fourstep|fourstep2`` (default fourstep2
-    since round 2c: the HBM-staged variant with the bf16 stage won
-    every same-window hardware A/B — 1.86 vs 1.05 GS/s,
-    docs/PERF.md round 2b)."""
-    import os
-
-    from sdr_tpu.kernels.fourstep_tx_pallas import (
-        supported as tx4_ok,
-        tx_chain_fourstep,
-    )
-    from sdr_tpu.kernels.fourstep_tx_split_pallas import (
-        supported as tx42_ok,
-        tx_chain_fourstep2,
-    )
-    from sdr_tpu.kernels.tx_pallas import supported as tx_ok, tx_chain_pallas
-
+def _tx(cfg: LinkConfig, idx: jnp.ndarray):
+    """(B,S,N) indices → planar (re, im) (B,S,sym_len): Gray map, IDFT
+    and CP insert."""
+    bits = _ints_to_bits(idx, cfg.modulation.bits_per_symbol)
+    pts = modulate(bits, cfg.modulation)
     if cfg.dft_spread:
         # Full-grid SC-FDMA: the DFT precode and the IFFT cancel — the
         # time-domain waveform IS the constellation sequence scaled by
-        # N^-1/2 (single-carrier with CP). No transform, no kernel:
-        # one gather + scale + CP concat of pure XLA elementwise work.
-        from sdr_tpu.ops.modulation import modulate
-
-        bits = _ints_to_bits(idx, cfg.modulation.bits_per_symbol)
-        pts = modulate(bits, cfg.modulation) * jnp.complex64(
-            cfg.ofdm.n_fft ** -0.5
-        )
+        # N^-1/2 (single-carrier with CP). No transform: one gather +
+        # scale + CP concat.
+        pts = pts * jnp.complex64(cfg.ofdm.n_fft ** -0.5)
         x = jnp.concatenate([pts[..., -cfg.ofdm.cp_len:], pts], axis=-1)
-        return jnp.real(x), jnp.imag(x)
-
-    small_ok = tx_ok(idx.shape, cfg.modulation)
-    wide_ok = tx4_ok(idx.shape, cfg.ofdm.cp_len, cfg.modulation)
-    want = backend == "pallas" or (
-        backend == "auto" and jax.default_backend() != "cpu"
-    )
-    if want and small_ok:
-        return tx_chain_pallas(idx, cfg.ofdm.cp_len, cfg.modulation)
-    # The wideband TX variants and the jnp fallback take int32 indices
-    # (only the small fused kernel widens narrow planes in-register).
-    if idx.dtype != jnp.int32 and not (want and small_ok):
-        idx = idx.astype(jnp.int32)
-    wide_variant = os.environ.get("SDR_TPU_TX_WIDEBAND", "fourstep2")
-    if (
-        want
-        and wide_variant == "fourstep2"
-        and tx42_ok(idx.shape, cfg.ofdm.cp_len, cfg.modulation)
-    ):
-        return tx_chain_fourstep2(idx, cfg.ofdm.cp_len, cfg.modulation)
-    if want and wide_ok:
-        return tx_chain_fourstep(idx, cfg.ofdm.cp_len, cfg.modulation)
-    bits = _ints_to_bits(idx, cfg.modulation.bits_per_symbol)
-    from sdr_tpu.ops.modulation import modulate
-
-    x = ofdm_tx(modulate(bits, cfg.modulation), cfg.ofdm.cp_len)
+    else:
+        x = ofdm_tx(pts, cfg.ofdm.cp_len)
     return jnp.real(x), jnp.imag(x)
 
 
@@ -100,40 +54,13 @@ def _role_keys(key: jax.Array, ch_ids: jnp.ndarray):
 
 
 def _draw_idx(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray):
-    """Per-channel transmitted symbol indices, (B, S, N).
+    """Per-channel transmitted symbol indices, (B, S, N) int32.
 
-    On TPU (channel-kernel backend active) the draw runs on the
-    on-core PRNG with the fixed 128-channel block rule — a pure
-    function of (key, global channel id), so the TX side, the RX
-    side's recompute and any 128-aligned shard draw IDENTICAL indices
-    (the pp/shard bit-exactness contract), without the threefry pass
-    the probe priced at ~1/4 of the engine. Returns the narrow int8/
-    int16 form every consumer kernel widens in-register. Off-TPU:
-    the original per-channel threefry draw (int32)."""
-    from sdr_tpu.kernels.channel_pallas import (
-        channel_backend,
-        payload_idx_pallas,
-        payload_supported,
-        seed32,
-    )
-
-    B = ch_ids.shape[0]
+    One threefry draw per channel, keyed by fold_in(key, global channel
+    id): the TX side, the RX side's recompute and any shard of any size
+    draw IDENTICAL indices (the pp/shard bit-exactness contract)."""
     S, N = cfg.n_symbols, cfg.ofdm.n_fft
     bps = cfg.modulation.bits_per_symbol
-    ckb = channel_backend()
-    # TPU only: the on-core PRNG has no interpret lowering, and unlike
-    # the noise kernel there is no injection form (the indices ARE the
-    # payload — off-TPU simply keeps threefry).
-    if (
-        jax.default_backend() == "tpu"
-        and ckb in ("auto", "pallas")
-        and payload_supported(B, S, N)
-    ):
-        return payload_idx_pallas(
-            B, S, N, bps,
-            seed32(prng.role_key(key, prng.ROLE_PAYLOAD)),
-            ch_ids=ch_ids,
-        )
     k_idx, _, _ = _role_keys(key, ch_ids)
     return jax.vmap(
         lambda k: jax.random.randint(k, (S, N), 0, 1 << bps, jnp.int32)
@@ -170,7 +97,7 @@ def _fade_state(cfg: LinkConfig, k_fade: jnp.ndarray):
     elif model == ChannelModel.MULTIPATH_TIME:
         # Per-tap-Jakes TDL: per-symbol taps (TX side) AND per-symbol
         # frequency response (B, S, N) — the h_syms = n_symbols
-        # channel-plane form every fused demod kernel already supports.
+        # channel-plane form the demod takes.
         taps = jax.vmap(
             lambda k: chan.multipath_time_taps(
                 k, cfg.channel.pdp, S, cfg.channel.doppler_norm
@@ -184,236 +111,61 @@ def _fade_state(cfg: LinkConfig, k_fade: jnp.ndarray):
     return h, taps
 
 
-def select_layout(cfg: LinkConfig, n_ch: int, platform: str) -> str:
-    """Auto rule for the fast engine's demod layout: "rows".
-
-    The channels-last kernel family (kernels/demod_cl_pallas.py) is
-    the headline demod path for data that IS channels-last — but this
-    engine's TX kernels, channel stage and index planes are rows-major,
-    and the relayout transposes measured on hardware cost MORE than
-    the CL kernel's demod win (e2e 3.8 vs 5.3 GS/s at the 8192×64
-    headline config, docs/PERF.md round 5). So "auto" stays rows here;
-    ``layout="cl"`` remains an explicit choice (and the layout the
-    sharded CL dryrun row exercises), and channels-last consumers feed
-    ``ops.demod.demod_*_chain_cl`` directly with no staging.
-    """
-    del cfg, n_ch, platform
-    return "rows"
-
-
-def layout_supported_cl(cfg: LinkConfig, n_ch: int) -> bool:
-    """Whether ``layout="cl"`` applies to this link (per-link channel
-    plane, 128-tiling batch, plain OFDM)."""
-    from sdr_tpu.kernels.demod_cl_pallas import supported_cl
-
-    if cfg.dft_spread:
-        return False
-    if cfg.channel.model in (
-        ChannelModel.RAYLEIGH_TIME,
-        ChannelModel.MULTIPATH_TIME,
-    ):
-        return False
-    return supported_cl(cfg.ofdm.n_fft, n_ch, cfg.n_symbols, cfg.modulation)
-
-
-def _to_cl(re: jnp.ndarray, im: jnp.ndarray):
-    """(B, S, L) planar → channels-last (S·L, B).
-
-    A pure relayout: XLA fuses it into the producing elementwise
-    fusion (the channel/noise stage), so the extra cost is the
-    different write tiling, not an extra HBM round trip (measured in
-    the e2e A/B, docs/PERF.md round 5)."""
-    B, S, L = re.shape
-    return (
-        jnp.moveaxis(re, 0, -1).reshape(S * L, B),
-        jnp.moveaxis(im, 0, -1).reshape(S * L, B),
-    )
-
-
-def tx_channel_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray,
-                    backend: str, layout: str = "rows"):
+def tx_channel_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray):
     """TX + channel for explicit global channel ids → impaired planar
-    (re, im), each (B, n_symbols, sym_len) float32 — or channels-last
-    (n_symbols·sym_len, B) when ``layout == "cl"``. First pipeline
+    (re, im), each (B, n_symbols, sym_len) float32. First pipeline
     stage of parallel.pp; fast_core composes it with rx_count_core."""
-    B = ch_ids.shape[0]
-    S, N = cfg.n_symbols, cfg.ofdm.n_fft
-    bps = cfg.modulation.bits_per_symbol
-    # Host floats (cfg is static) so they stay trace-time constants.
-    nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
-    tvar = nv / N
-
-    idx = _draw_idx(cfg, key, ch_ids)
-    return tx_with_channel(cfg, key, ch_ids, idx, backend, layout=layout)
+    with jax.named_scope("payload"):
+        idx = _draw_idx(cfg, key, ch_ids)
+    return tx_with_channel(cfg, key, ch_ids, idx)
 
 
 def tx_with_channel(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray,
-                    idx: jnp.ndarray, backend: str, layout: str = "rows"):
+                    idx: jnp.ndarray):
     """TX + channel over EXPLICIT indices (shared by the uncoded and
-    coded fast engines).
-
-    Fully-fused TX+channel (round 5): for flat models at small-kernel
-    shapes the Gray map → IDFT → CP → fading → AWGN all run in ONE
-    Pallas pass — the clean waveform never round-trips HBM (the
-    separate channel-kernel pass measured several ms/iter). Noise is
-    seeded per GLOBAL channel row (tiling-independent stream —
-    split==full bit-exact, verified on TPU). Everything else takes the
-    staged TX kernel + channel kernel path.
-    """
-    bps = cfg.modulation.bits_per_symbol
-    tvar = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps) / cfg.ofdm.n_fft
-    from sdr_tpu.kernels.channel_pallas import channel_backend, seed32
-    from sdr_tpu.kernels.tx_pallas import (
-        supported as _tx_ok,
-        tx_channel_chain_pallas,
-    )
-
-    model = cfg.channel.model
-    fusable = model in (
-        ChannelModel.AWGN,
-        ChannelModel.RAYLEIGH_FLAT,
-        ChannelModel.RICIAN,
-        ChannelModel.RAYLEIGH_TIME,
-        ChannelModel.MULTIPATH,
-        ChannelModel.MULTIPATH_TIME,
-    )
-    n_taps = len(cfg.channel.pdp or ()) if model in (
-        ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME
-    ) else 0
-    want_fused = (
-        fusable
-        and not cfg.dft_spread
-        and n_taps <= 16
-        and jax.default_backend() == "tpu"
-        and channel_backend() in ("auto", "pallas")
-        and backend in ("auto", "pallas")
-        and _tx_ok(idx.shape, cfg.modulation)
-    )
-    if want_fused:
-        _, _, k_fade = _role_keys(key, ch_ids)
-        h, taps = _fade_state(cfg, k_fade)
-        if n_taps:
-            hs = None  # selective: the FIR runs in-kernel
-            tr, ti = jnp.real(taps), jnp.imag(taps)
-        else:
-            hs = None if h is None else h[:, :, 0]
-            tr = ti = None
-        re, im = tx_channel_chain_pallas(
-            idx, cfg.ofdm.cp_len, cfg.modulation,
-            seed32(prng.role_key(key, prng.ROLE_NOISE)), ch_ids, tvar,
-            hs_r=None if hs is None else jnp.real(hs),
-            hs_i=None if hs is None else jnp.imag(hs),
-            taps_r=tr, taps_i=ti,
-        )
-        if layout == "cl":
-            return _to_cl(re, im)
-        return re, im
-
-    re, im = _tx(cfg, idx, backend)
-    return apply_channel_fast(cfg, key, ch_ids, re, im, layout=layout)
+    coded fast engines)."""
+    with jax.named_scope("tx"):
+        re, im = _tx(cfg, idx)
+    return apply_channel_fast(cfg, key, ch_ids, re, im)
 
 
 def apply_channel_fast(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray,
-                       re: jnp.ndarray, im: jnp.ndarray,
-                       layout: str = "rows"):
+                       re: jnp.ndarray, im: jnp.ndarray):
     """The fast engine's channel stage over an externally-built
-    waveform: fading + AWGN, keyed by global channel id, through the
-    fused Pallas channel kernel where it applies (else the threefry
-    XLA path). Shared by tx_channel_core and the coded fast engine."""
+    waveform: fading + AWGN, every draw keyed by (key, role, global
+    channel id) so the stream does not depend on the batch split."""
     B = ch_ids.shape[0]
     bps = cfg.modulation.bits_per_symbol
-    N = cfg.ofdm.n_fft
     nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
-    tvar = nv / N
-
-    _, k_noise, k_fade = _role_keys(key, ch_ids)
+    tvar = nv / cfg.ofdm.n_fft
     model = cfg.channel.model
-    h, taps = _fade_state(cfg, k_fade)
 
-    # Fused channel kernel (round 5): fading multiply + on-core-PRNG
-    # AWGN in ONE Pallas read-modify-write pass — the XLA stage below
-    # (threefry normals + complex materialize/multiply/add/split)
-    # measured at HALF the whole engine (docs/PERF.md round 5). The
-    # noise stream is a pure function of (key, global channel id), so
-    # the sharded/unsharded bit-exactness contract is preserved; it is
-    # a DIFFERENT stream than the threefry path's (BER statistics are
-    # validated against theory either way, tests/test_channel_kernel).
-    from sdr_tpu.kernels.channel_pallas import (
-        channel_backend,
-        fade_awgn_pallas,
-        seed32,
-        supported as _ck_ok,
-    )
-
-    ckb = channel_backend()
-    want_ck = model != ChannelModel.IDENTITY and (
-        ckb == "pallas"
-        or (ckb == "auto" and jax.default_backend() == "tpu")
-    )
-    if want_ck and _ck_ok(re.shape, 1 if h is None else h.shape[1]):
+    with jax.named_scope("channel"):
+        _, k_noise, k_fade = _role_keys(key, ch_ids)
+        h, taps = _fade_state(cfg, k_fade)
+        x = jax.lax.complex(re, im)
         if model == ChannelModel.MULTIPATH:
-            x = jax.lax.complex(re, im)
             stream = x.reshape(B, -1)
             x = chan.apply_multipath(stream, taps).reshape(x.shape)
-            re, im = jnp.real(x), jnp.imag(x)
-            hs_r = hs_i = None
         elif model == ChannelModel.MULTIPATH_TIME:
-            x = jax.lax.complex(re, im)
+            # Each symbol through its own taps, previous symbol's tail as
+            # FIR history (identical to pipeline.apply_channel's model).
             x = chan.apply_multipath(
                 x, taps, history=chan.symbol_history(x, taps.shape[-1])
             )
-            re, im = jnp.real(x), jnp.imag(x)
-            hs_r = hs_i = None
-        else:
-            # Flat models: per-link or per-symbol complex scalar gains
-            # ride into the kernel; AWGN-only passes h = None.
-            hs = None if h is None else h[:, :, 0]
-            hs_r = None if hs is None else jnp.real(hs)
-            hs_i = None if hs is None else jnp.imag(hs)
-        # Off-TPU the on-core PRNG has no lowering: inject per-channel
-        # threefry noise (keyed like the jnp path, so the sharded
-        # bit-exactness contract holds on the virtual CPU mesh too).
-        noise = None
-        if jax.default_backend() != "tpu":
-            noise_z = jax.vmap(
-                lambda k: jax.random.normal(k, (2,) + re.shape[1:])
-            )(k_noise)
-            noise = (noise_z[:, 0], noise_z[:, 1])
-        re, im = fade_awgn_pallas(
-            re, im, hs_r, hs_i,
-            seed32(prng.role_key(key, prng.ROLE_NOISE)),
-            tvar, ch_ids=ch_ids, noise=noise,
-        )
-        if layout == "cl":
-            return _to_cl(re, im)
-        return re, im
-
-    x = jax.lax.complex(re, im)
-    if model == ChannelModel.MULTIPATH:
-        stream = x.reshape(B, -1)
-        x = chan.apply_multipath(stream, taps).reshape(x.shape)
-    elif model == ChannelModel.MULTIPATH_TIME:
-        # Each symbol through its own taps, previous symbol's tail as
-        # FIR history (identical to pipeline.apply_channel's model).
-        x = chan.apply_multipath(
-            x, taps, history=chan.symbol_history(x, taps.shape[-1])
-        )
-    elif model in (
-        ChannelModel.RAYLEIGH_FLAT,
-        ChannelModel.RAYLEIGH_TIME,
-        ChannelModel.RICIAN,
-    ):
-        x = x * h
-    if model != ChannelModel.IDENTITY:
-        x = jax.vmap(lambda k, xc: chan.awgn(k, xc, tvar))(k_noise, x)
-    if layout == "cl":
-        return _to_cl(jnp.real(x), jnp.imag(x))
-    return jnp.real(x), jnp.imag(x)
+        elif model in (
+            ChannelModel.RAYLEIGH_FLAT,
+            ChannelModel.RAYLEIGH_TIME,
+            ChannelModel.RICIAN,
+        ):
+            x = x * h
+        if model != ChannelModel.IDENTITY:
+            x = jax.vmap(lambda k, xc: chan.awgn(k, xc, tvar))(k_noise, x)
+        return jnp.real(x), jnp.imag(x)
 
 
 def rx_count_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray,
-                  re: jnp.ndarray, im: jnp.ndarray, backend: str,
-                  layout: str = "rows"):
+                  re: jnp.ndarray, im: jnp.ndarray):
     """Demod + error count over impaired planar samples.
 
     Recomputes the channel plane AND the transmitted bits from the
@@ -427,117 +179,44 @@ def rx_count_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray,
     bps = mod.bits_per_symbol
     nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
 
-    k_idx, _, k_fade = _role_keys(key, ch_ids)
-    h, taps = _fade_state(cfg, k_fade)
-
-    # TDL fast path (round 5): hand the PER-SYMBOL TAPS to the count
-    # kernel and let it compute the frequency response on-chip — the
-    # (B, S, N) complex plane (sample-plane-sized) is never built.
-    if (
-        cfg.channel.model == ChannelModel.MULTIPATH_TIME
-        and layout == "rows"
-        and not cfg.dft_spread
-        and taps is not None
-        and taps.shape[-1] <= 8
-        and jax.default_backend() == "tpu"
-        and backend in ("auto", "pallas")
-    ):
-        from sdr_tpu.kernels.demod_pallas import (
-            demod_count_pallas,
-            supported as _rows_ok,
-        )
-
-        if _rows_ok(re.shape, cfg.ofdm.cp_len, mod):
-            idx = _draw_idx(cfg, key, ch_ids)
-            errors = demod_count_pallas(
-                re, im, None, None, idx, cfg.ofdm.cp_len, mod,
-                max(nv, 1e-12),
-                taps=(jnp.real(taps), jnp.imag(taps)),
-            )
-            counted = jnp.full((B,), S * N * bps, jnp.int32)
-            return errors, counted
-    if layout == "cl":
-        # Channels-last demod terminal (the headline kernel family).
-        # The transmitted indices are regenerated DIRECTLY in the
-        # (S, N, B) layout (out_axes=-1) — per-channel draws are
-        # identical to the rows path's, so no transpose is ever paid
-        # for them; only the h plane (n_fft·B, tiny) is transposed.
-        if h is not None and h.shape[1] != 1:
-            raise NotImplementedError(
-                "channels-last demod takes a per-link channel plane; "
-                "per-symbol fading models run in the rows layout"
-            )
-        if h is None:
-            hr_t = jnp.ones((N, B), jnp.float32)
-            hi_t = jnp.zeros((N, B), jnp.float32)
-        else:
-            hb = jnp.broadcast_to(h[:, 0, :], (B, N))
-            hr_t = jnp.real(hb).T
-            hi_t = jnp.imag(hb).T
-        idx_b = _draw_idx(cfg, key, ch_ids)  # (B, S, N), possibly narrow
-        idx_t = jnp.moveaxis(idx_b, 0, -1)
-        from sdr_tpu.ops.demod import demod_count_chain_cl
-
-        errors = demod_count_chain_cl(
-            re, im, hr_t, hi_t, idx_t.reshape(S * N, B),
-            cfg.ofdm.cp_len, mod, max(nv, 1e-12),
-            backend=backend,
-        )
-        counted = jnp.full((B,), S * N * bps, jnp.int32)
-        return errors, counted
+    _, _, k_fade = _role_keys(key, ch_ids)
+    h, _ = _fade_state(cfg, k_fade)
     if h is None:
         hb = jnp.broadcast_to(jnp.complex64(1.0), (B, 1, N))
     else:
         # Per-symbol fading keeps the symbol axis (B,S,N); static models
         # broadcast to the canonical per-link (B,1,N) channel plane.
-        h_syms = h.shape[1]
-        hb = jnp.broadcast_to(h, (B, h_syms, N)).astype(jnp.complex64)
+        hb = jnp.broadcast_to(h, (B, h.shape[1], N)).astype(jnp.complex64)
 
-    idx = _draw_idx(cfg, key, ch_ids)
-    # Fused count path where available: hard decisions compared in the
-    # demod kernel itself — no LLR plane or bit-order transpose in HBM
-    # (ops.demod.demod_count_chain; decision-identical fallback).
+    with jax.named_scope("payload"):
+        idx = _draw_idx(cfg, key, ch_ids)
     errors = demod_count_chain(
         re, im,
         jnp.real(hb), jnp.imag(hb),
         idx, cfg.ofdm.cp_len, mod, max(nv, 1e-12),
-        backend=backend,
-        # SC-FDE receive (full-grid SC-FDMA): the fused kernel adds
-        # one IDFT matmul after the per-tone equalizer; idx indexes
-        # the TIME-domain constellation symbols.
+        # SC-FDE receive (full-grid SC-FDMA): idx indexes the
+        # TIME-domain constellation symbols.
         despread=cfg.dft_spread,
     )
     counted = jnp.full((B,), S * N * bps, jnp.int32)
     return errors, counted
 
 
-def fast_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray, backend: str,
-              layout: str = "auto"):
+def fast_core(cfg: LinkConfig, key: jax.Array, ch_ids: jnp.ndarray):
     """The batched link over explicit GLOBAL channel ids.
 
     Every random draw is keyed by fold_in(key, channel_id) — the same
     discipline as link.pipeline — so the result for a channel does not
     depend on which device (or batch slice) computes it. That is what
     makes the sharded fast path (parallel.shard.make_sharded_fast_fn)
-    bit-exact vs the unsharded one. Returns per-channel
-    (bit_errors, bits_counted), both (len(ch_ids),) int32.
-
-    ``layout="auto"`` resolves per ``select_layout``: the channels-last
-    pipelined demod wherever it applies (TPU, per-link channel plane,
-    128-tiling batch), the rows kernels otherwise. Both layouts draw
-    identical per-channel randomness, so BER statistics agree; the
-    bit-exactness contract (sharded == unsharded) holds within a
-    layout, which resolves identically on every shard of a 128-tiling
-    split.
+    bit-exact vs the unsharded one for any shard size. Returns
+    per-channel (bit_errors, bits_counted), both (len(ch_ids),) int32.
     """
-    if layout == "auto":
-        layout = select_layout(cfg, ch_ids.shape[0], jax.default_backend())
-    re, im = tx_channel_core(cfg, key, ch_ids, backend, layout=layout)
-    return rx_count_core(cfg, key, ch_ids, re, im, backend, layout=layout)
+    re, im = tx_channel_core(cfg, key, ch_ids)
+    return rx_count_core(cfg, key, ch_ids, re, im)
 
 
-def fast_simulate(cfg: LinkConfig, key: jax.Array, backend: str = "auto",
-                  layout: str = "auto"):
+def fast_simulate(cfg: LinkConfig, key: jax.Array):
     """Full link over (n_channels, n_symbols) as one batched program.
 
     Returns (bit_errors (n_channels,) int32, bits_counted (n_channels,)).
@@ -552,18 +231,12 @@ def fast_simulate(cfg: LinkConfig, key: jax.Array, backend: str = "auto",
             "fast_simulate is SISO; MIMO links run in "
             "link.pipeline.simulate (set mimo=None here)"
         )
-    # cfg.dft_spread runs here too since round 3: FULL-GRID SC-FDMA is
-    # single-carrier with CP (precode and IFFT cancel at TX; SC-FDE
-    # receive = per-tone equalize + one fused IDFT matmul). The
-    # pilot_spacing gate above already routes block-pilot SC-FDMA to
-    # link.pipeline.
-    return fast_core(cfg, key, jnp.arange(cfg.n_channels), backend,
-                     layout=layout)
+    # FULL-GRID SC-FDMA (cfg.dft_spread) runs here too: single-carrier
+    # with CP at TX, SC-FDE receive. The pilot_spacing gate above routes
+    # block-pilot SC-FDMA to link.pipeline.
+    return fast_core(cfg, key, jnp.arange(cfg.n_channels))
 
 
-def make_fast_fn(cfg: LinkConfig, backend: str = "auto",
-                 layout: str = "auto"):
+def make_fast_fn(cfg: LinkConfig):
     """Jitted fast link with cfg closed over."""
-    return jax.jit(
-        functools.partial(fast_simulate, cfg, backend=backend, layout=layout)
-    )
+    return jax.jit(functools.partial(fast_simulate, cfg))

@@ -1,33 +1,13 @@
-"""Coded fast engine: batched LDPC link on the fused-kernel path.
+"""Coded fast engine: batched LDPC link on the fast-engine path.
 
 link.coded.simulate_ldpc composes the coded chain per channel under
 vmap through link.pipeline — maximal flexibility (pilots, MIMO, every
-channel model), but none of the fused engines touch it. This module is
-the THROUGHPUT coded path (VERDICT round 4 item 5): the whole
-batch runs through the fast engine's kernels —
+channel model). This module is the THROUGHPUT coded path: the whole
+batch runs as batched arrays through the fast engine's stages —
 
   info bits → QC-LDPC encode → frame interleave → Gray map indices →
-  fused TX kernel → fused channel kernel → LLR demod → (de)interleave
-  → sublane min-sum decode → per-channel info-bit errors
-
-— with the demod→decoder SEAM fused at the layout level. Two seam
-forms, bit-exact to each other (tests/test_fast_coded.py):
-
-- ``seam="staged"``: public-order LLR plane (batch, S, N·bps) →
-  deinterleave gather → rows-major decoder (pays the public-order
-  restore inside the rows demod kernel and a relayout on each side of
-  the decoder).
-- ``seam="fused"``: the CL demod's kernel-order plane
-  (S·bps·N, batch) → ONE row-gather with the COMPOSED permutation
-  (deinterleave ∘ bit-major/DIF layout map — composition precomputed
-  at trace time, so the public bin order is never materialized) →
-  the transposed-input sublane decoder (codewords already on lanes).
-
-After round 5's decoder work the coded chain is DECODER-BOUND (demod
-count/llr kernels run 35-86 GS/s ≈ 140-344 Gb/s of coded bits vs the
-decoder's ~1.4 Gb/s), so the seam choice moves e2e by only a few
-percent — measured and documented in docs/PERF.md round 5; the ≥2×
-item-5 target is carried by the batching + sublane decoder itself.
+  TX → channel → LLR demod → deinterleave → min-sum decode →
+  per-channel info-bit errors.
 
 Randomness discipline: every draw is keyed by fold_in(key, global
 channel id) (payload via ROLE_PAYLOAD — the same derivation as
@@ -39,81 +19,41 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 
 from sdr_tpu.core import prng
 from sdr_tpu.core.config import LinkConfig
 from sdr_tpu.link.coded import ldpc_code_for, ldpc_codewords_per_channel
-from sdr_tpu.link.fast import (
-    _fade_state,
-    _role_keys,
-    _to_cl,
-    tx_with_channel,
-)
-from sdr_tpu.ops.interleave import _perm as _il_perm
-from sdr_tpu.ops.ldpc import ldpc_encode
+from sdr_tpu.link.fast import _fade_state, _role_keys, tx_with_channel
+from sdr_tpu.ops.demod import demod_chain
+from sdr_tpu.ops.interleave import deinterleave, interleave
+from sdr_tpu.ops.ldpc import ldpc_decode, ldpc_encode
 
 
 def _frame_to_idx(frame_bits: jnp.ndarray, bps: int):
     """(B, S·N·bps) int8 coded bits → (B, S, N) symbol indices,
-    MSB-first per symbol (the _ints_to_bits convention the TX kernels
-    decode)."""
+    MSB-first per symbol (the _ints_to_bits convention)."""
     B, total = frame_bits.shape
     b = frame_bits.reshape(B, total // bps, bps).astype(jnp.int32)
     w = jnp.asarray([1 << (bps - 1 - j) for j in range(bps)], jnp.int32)
-    return jnp.einsum("btj,j->bt", b, w)
+    return jnp.sum(b * w, axis=-1)
 
 
-@functools.lru_cache(maxsize=None)
-def _fused_rowperm(n_fft: int, n_syms: int, bps: int, sent: int, seed: int):
-    """Composed gather: kernel-order LLR plane row → deinterleaved
-    coded-bit position, as ONE static permutation.
-
-    Kernel-order row (s, j, r) holds the LLR of public position
-    p = s·(n_fft·bps) + dif_perm[r]·bps + j; the deinterleaver wants
-    public position il_perm inverse. Composition happens here in
-    numpy — no public-order plane ever exists on device."""
-    from sdr_tpu.kernels.demod_cl_pallas import dif_perm
-
-    frame = n_syms * n_fft * bps
-    _p, inv = _il_perm(frame, seed)
-    # public position of each kernel-order row:
-    dp = dif_perm(n_fft)
-    rows = np.arange(n_syms * bps * n_fft)
-    s = rows // (bps * n_fft)
-    j = (rows // n_fft) % bps
-    r = rows % n_fft
-    pub = s * (n_fft * bps) + dp[r] * bps + j
-    # row index (kernel order) holding public position q:
-    by_pub = np.empty(frame, np.int32)
-    by_pub[pub] = rows
-    # deinterleave(x) = x[inv], so coded-stream position t reads
-    # public position inv[t]. Cached as NUMPY (an lru-cached jnp array
-    # created under one trace would leak its tracer into the next).
-    return by_pub[inv[:sent]]
-
-
-def ldpc_fast_simulate(
+def ldpc_fast_llrs(
     cfg: LinkConfig,
     key: jax.Array,
     rate: str = "1/2",
-    iters: int = 25,
-    schedule: str = "flooding",
-    backend: str = "auto",
-    seam: str = "auto",
     ch_ids: jnp.ndarray | None = None,
 ):
-    """Batched LDPC-coded link; returns per-channel
-    (info_bit_errors, info_bits_counted), both (B,) int32."""
+    """Everything before the decoder: per channel the info bits
+    (B, n_cw, k) int8, and the deinterleaved decoder input LLRs
+    (B·n_cw, n) float32."""
     if cfg.pilot_spacing or cfg.mimo is not None or cfg.dft_spread:
         raise NotImplementedError(
             "the coded fast engine runs full-grid SISO OFDM; pilots/"
             "MIMO/SC-FDMA coded links run in link.coded"
         )
-    from sdr_tpu.kernels.demod_cl_pallas import supported_cl
-
     if ch_ids is None:
         ch_ids = jnp.arange(cfg.n_channels)
     B = ch_ids.shape[0]
@@ -125,102 +65,69 @@ def ldpc_fast_simulate(
     frame_bits = S * N * bps
     sent = n_cw * code.n
     nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
-    if seam == "auto":
-        seam = (
-            "fused"
-            if (
-                jax.default_backend() == "tpu"
-                and supported_cl(N, B, S, mod)
-                and B * n_cw % 128 == 0
-            )
-            else "staged"
-        )
 
     # --- TX side -----------------------------------------------------
-    ch_keys = jax.vmap(lambda c: jax.random.fold_in(key, c))(ch_ids)
-    k_bits = jax.vmap(lambda k: prng.role_key(k, prng.ROLE_PAYLOAD))(ch_keys)
-    info = jax.vmap(
-        lambda k: jax.random.bernoulli(k, 0.5, (n_cw, code.k))
-    )(k_bits).astype(jnp.int8)
-    cw = ldpc_encode(code, info).reshape(B, sent)
-    frame = jnp.zeros((B, frame_bits), jnp.int8).at[:, :sent].set(cw)
-    from sdr_tpu.ops.interleave import interleave
-
-    frame = interleave(frame)
-    idx = _frame_to_idx(frame, bps).reshape(B, S, N)
-    re, im = tx_with_channel(cfg, key, ch_ids, idx, backend, layout="rows")
+    with jax.named_scope("payload"):
+        ch_keys = jax.vmap(lambda c: jax.random.fold_in(key, c))(ch_ids)
+        k_bits = jax.vmap(
+            lambda k: prng.role_key(k, prng.ROLE_PAYLOAD)
+        )(ch_keys)
+        info = jax.vmap(
+            lambda k: jax.random.bernoulli(k, 0.5, (n_cw, code.k))
+        )(k_bits).astype(jnp.int8)
+    with jax.named_scope("encode"):
+        cw = ldpc_encode(code, info).reshape(B, sent)
+        frame = jnp.zeros((B, frame_bits), jnp.int8).at[:, :sent].set(cw)
+        frame = interleave(frame)
+        idx = _frame_to_idx(frame, bps).reshape(B, S, N)
+    re, im = tx_with_channel(cfg, key, ch_ids, idx)
 
     # --- RX side -----------------------------------------------------
     _, _, k_fade = _role_keys(key, ch_ids)
     h, _ = _fade_state(cfg, k_fade)
-    nv_eff = max(nv, 1e-12)
-    if seam == "fused":
-        if h is not None and h.shape[1] != 1:
-            raise NotImplementedError(
-                "fused seam takes a per-link channel plane"
-            )
-        from sdr_tpu.kernels.ldpc_pallas import ldpc_decode_sublane_t
-        from sdr_tpu.ops.demod import demod_llr_chain_cl
-
-        re_t, im_t = _to_cl(re, im)
-        if h is None:
-            hr_t = jnp.ones((N, B), jnp.float32)
-            hi_t = jnp.zeros((N, B), jnp.float32)
-        else:
-            hb = jnp.broadcast_to(h[:, 0, :], (B, N))
-            hr_t = jnp.real(hb).T
-            hi_t = jnp.imag(hb).T
-        plane = demod_llr_chain_cl(
-            re_t, im_t, hr_t, hi_t, cfg.ofdm.cp_len, mod, nv_eff,
-            kernel_order=True,
-        )  # (S·bps·N, B)
-        rowperm = jnp.asarray(_fused_rowperm(N, S, bps, sent, 0x1EAF))
-        llr_t = plane[rowperm]  # (sent, B) deinterleaved coded stream
-        # (n_cw·n, B) → (n, n_cw·B): codewords stay on lanes.
-        llr_cw_t = (
-            llr_t.reshape(n_cw, code.n, B)
-            .transpose(1, 0, 2)
-            .reshape(code.n, n_cw * B)
-        )
-        hard_t = ldpc_decode_sublane_t(
-            code, llr_cw_t, iters=iters, schedule=schedule
-        )
-        decoded = (
-            hard_t.reshape(code.n, n_cw, B).transpose(2, 1, 0)
-        )  # (B, n_cw, n)
+    if h is None:
+        hb = jnp.broadcast_to(jnp.complex64(1.0), (B, 1, N))
     else:
-        from sdr_tpu.ops.demod import demod_chain
-        from sdr_tpu.ops.interleave import deinterleave
-        from sdr_tpu.ops.ldpc import ldpc_decode
-
-        if h is None:
-            hb = jnp.broadcast_to(jnp.complex64(1.0), (B, 1, N))
-        else:
-            hb = jnp.broadcast_to(
-                h, (B, h.shape[1], N)
-            ).astype(jnp.complex64)
-        llr = demod_chain(
-            re, im, jnp.real(hb), jnp.imag(hb), cfg.ofdm.cp_len, mod,
-            nv_eff, backend=backend,
-        ).reshape(B, frame_bits)
+        hb = jnp.broadcast_to(h, (B, h.shape[1], N)).astype(jnp.complex64)
+    llr = demod_chain(
+        re, im, jnp.real(hb), jnp.imag(hb), cfg.ofdm.cp_len, mod,
+        max(nv, 1e-12),
+    ).reshape(B, frame_bits)
+    with jax.named_scope("decode"):
         llr_cw = deinterleave(llr)[:, :sent].reshape(B * n_cw, code.n)
+    return info, llr_cw
+
+
+def ldpc_fast_simulate(
+    cfg: LinkConfig,
+    key: jax.Array,
+    rate: str = "1/2",
+    iters: int = 25,
+    schedule: str = "flooding",
+    ch_ids: jnp.ndarray | None = None,
+):
+    """Batched LDPC-coded link; returns per-channel
+    (info_bit_errors, info_bits_counted), both (B,) int32."""
+    code = ldpc_code_for(rate)
+    info, llr_cw = ldpc_fast_llrs(cfg, key, rate, ch_ids)
+    B, n_cw = info.shape[:2]
+    with jax.named_scope("decode"):
         decoded = ldpc_decode(
             code, llr_cw, iters=iters, schedule=schedule
         ).reshape(B, n_cw, code.n)
-    errors = jnp.sum(
-        (decoded[:, :, : code.k] != info).astype(jnp.int32), axis=(1, 2)
-    )
+        errors = jnp.sum(
+            (decoded[:, :, : code.k] != info).astype(jnp.int32), axis=(1, 2)
+        )
     counted = jnp.full((B,), n_cw * code.k, jnp.int32)
     return errors, counted
 
 
 def make_ldpc_fast_fn(cfg: LinkConfig, rate: str = "1/2", iters: int = 25,
-                      schedule: str = "flooding", backend: str = "auto",
-                      seam: str = "auto"):
+                      schedule: str = "flooding"):
     """Jitted coded fast link with cfg closed over."""
     return jax.jit(
         functools.partial(
             ldpc_fast_simulate, cfg, rate=rate, iters=iters,
-            schedule=schedule, backend=backend, seam=seam,
+            schedule=schedule,
         )
     )

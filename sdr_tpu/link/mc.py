@@ -1,19 +1,13 @@
-"""Monte-Carlo link driver over the fully-fused MC kernel.
+"""Monte-Carlo link driver: many fast-engine passes in one program.
 
-``mc_simulate`` iterates kernels/mc_pallas.py's single-pass kernel
-inside one jitted ``lax.fori_loop``, folding the iteration index into
-the seed so every pass draws fresh indices, channel realizations and
-noise from the on-core hardware PRNG. Per iteration the only HBM
-traffic is the seed in and a per-channel count vector out — the
-Monte-Carlo simulation runs at MXU/VPU rates instead of being bound
-by threefry noise generation and stage buffers (measured ~3x faster
-end-to-end than link/fast on the v5e; docs/PERF.md).
-
-This path is statistically validated (BER vs exact theory; the
-`rand_inputs` interpret parity in tests/test_mc.py), NOT bit-exact
-with link.fast's jax.random stream — use it for BER curves and
-Eb/N0 sweeps, use link.fast when sharded/unsharded bit-exactness
-against the oracle chain is the contract.
+``mc_simulate`` runs ``iters`` passes of link.fast.fast_core inside one
+jitted ``lax.fori_loop``, with one key per pass (fold_in of the seed's
+key and the pass index), and accumulates per-channel error counts on
+the device. Per pass every draw — payload, fading, noise — is keyed by
+(pass key, role, global channel id), so a channel-sharded run over the
+same channel ids is bit-exact vs the unsharded one
+(parallel.shard.make_sharded_mc_fn). Use it for BER curves and Eb/N0
+sweeps at bit counts one fast-engine call cannot hold.
 """
 
 from __future__ import annotations
@@ -24,131 +18,80 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from sdr_tpu.core.config import LinkConfig
-from sdr_tpu.kernels.mc_pallas import mc_count_pallas, supported
+from sdr_tpu.core.config import ChannelModel, LinkConfig
+
+_SUPPORTED_MODELS = (
+    ChannelModel.IDENTITY,
+    ChannelModel.AWGN,
+    ChannelModel.RAYLEIGH_FLAT,
+    ChannelModel.MULTIPATH,
+    ChannelModel.RAYLEIGH_TIME,
+    ChannelModel.RICIAN,
+    ChannelModel.MULTIPATH_TIME,
+)
+
+
+def supported(cfg: LinkConfig) -> bool:
+    """A full-grid SISO link the fast engine runs: supported channel
+    model, genie CSI, no acquisition impairments, no PA."""
+    return (
+        cfg.channel.model in _SUPPORTED_MODELS
+        and cfg.pilot_spacing == 0
+        and cfg.mimo is None
+        and not cfg.channel.impaired
+        and not cfg.channel.has_pa
+    )
+
+
+def _check_counter(cfg: LinkConfig, iters: int) -> int:
+    """Bits counted per channel per pass; raises if ``iters`` passes
+    overflow the int32 per-channel counters."""
+    bits_per_pass = (
+        cfg.n_symbols * cfg.ofdm.n_fft * cfg.modulation.bits_per_symbol
+    )
+    if bits_per_pass * iters >= 2**31:
+        raise ValueError(
+            f"iters={iters} overflows the int32 per-channel bit counter "
+            f"({bits_per_pass} bits/pass); accumulate across mc_simulate "
+            "calls at the caller instead"
+        )
+    return bits_per_pass
 
 
 def mc_simulate(
     cfg: LinkConfig,
     seed: int | jax.Array = 0,
     iters: int = 1,
-    interpret: bool | None = None,
-    rand_inputs=None,
+    ch_ids: jnp.ndarray | None = None,
 ):
     """Run ``iters`` Monte-Carlo passes; returns per-channel
-    (bit_errors, bits_counted), both (n_channels,) int32.
+    (bit_errors, bits_counted), both int32 over ``ch_ids`` (default:
+    every channel of ``cfg``).
 
     Bits counted per channel per pass is the static
     n_symbols·n_fft·bits_per_symbol (CP carries no payload)."""
+    from sdr_tpu.link.fast import fast_core
+
     if not supported(cfg):
-        if _fde_mc_supported(cfg) and rand_inputs is None:
-            return _mc_scfdma_wideband(cfg, seed, iters)
         raise ValueError(f"mc_simulate does not support this config: {cfg}")
-    bits_per_pass = (
-        cfg.n_symbols * cfg.ofdm.n_fft * cfg.modulation.bits_per_symbol
+    bits_per_pass = _check_counter(cfg, iters)
+    if ch_ids is None:
+        ch_ids = jnp.arange(cfg.n_channels, dtype=jnp.int32)
+    base = jax.random.fold_in(
+        jax.random.PRNGKey(0), jnp.asarray(seed, jnp.int32)
     )
-    if bits_per_pass * iters >= 2**31:
-        raise ValueError(
-            f"iters={iters} overflows the int32 per-channel bit counter "
-            f"({bits_per_pass} bits/pass); accumulate across mc_simulate "
-            "calls at the caller instead"
-        )
-    seed = jnp.asarray(seed, jnp.int32)
 
-    if rand_inputs is not None or iters == 1:
-        errs = mc_count_pallas(
-            cfg, seed, interpret=interpret, rand_inputs=rand_inputs
-        )
-    else:
-        def body(i, acc):
-            # Distinct seed per pass; the kernel further folds in the
-            # grid block id.
-            e = mc_count_pallas(
-                cfg, seed + i * jnp.int32(0x9E3779B9 & 0x7FFFFFFF),
-                interpret=interpret,
-            )
-            return acc + e
+    def body(i, acc):
+        errs, _ = fast_core(cfg, jax.random.fold_in(base, i), ch_ids)
+        return acc + errs
 
-        errs = lax.fori_loop(
-            0, iters, body, jnp.zeros((cfg.n_channels,), jnp.int32)
-        )
-    counted = jnp.full((cfg.n_channels,), bits_per_pass * iters, jnp.int32)
+    # zeros_like keeps the carry's sharding type equal to the body's
+    # output when ch_ids varies over a shard_map axis.
+    errs = lax.fori_loop(0, iters, body, jnp.zeros_like(ch_ids, jnp.int32))
+    counted = jnp.full(ch_ids.shape, bits_per_pass * iters, jnp.int32)
     return errs, counted
 
 
 def make_mc_fn(cfg: LinkConfig, iters: int = 1):
     """Jitted MC driver with cfg closed over (seed stays a traced arg)."""
     return jax.jit(functools.partial(mc_simulate, cfg, iters=iters))
-
-
-def _fde_mc_supported(cfg: LinkConfig) -> bool:
-    """Wideband SC-FDMA Monte-Carlo (round 4): n_fft ≥ 1024 full-grid
-    SC-FDMA under the staged composition below."""
-    from sdr_tpu.kernels.fourstep_split_pallas import supported_fde
-    from sdr_tpu.kernels.mc_pallas import _SUPPORTED_MODELS
-
-    return (
-        cfg.dft_spread
-        and cfg.ofdm.n_fft >= 1024
-        and cfg.channel.model in _SUPPORTED_MODELS
-        and cfg.pilot_spacing == 0
-        and cfg.mimo is None
-        and not cfg.channel.impaired
-        and not cfg.channel.has_pa
-        and supported_fde(
-            (cfg.n_channels, cfg.n_symbols, cfg.ofdm.symbol_len),
-            cfg.ofdm.cp_len,
-            cfg.modulation,
-        )
-    )
-
-
-def _mc_scfdma_wideband(cfg: LinkConfig, seed, iters: int):
-    """Wideband uplink Monte-Carlo: the staged SC-FDMA composition.
-
-    Full-grid SC-FDMA's TX is the spread⁻¹∘IFFT identity (a scaled
-    constellation sequence — link.fast._tx), so the expensive side is
-    the RECEIVER, which runs the fused three-phase wideband SC-FDE
-    count kernel (kernels/fourstep_split_pallas.
-    demod_chain_fourstep2_fde) via the fast-engine composition. Same
-    statistical contract as the in-kernel MC path (per-pass fresh
-    indices/channel/noise keyed by (seed, iteration)); the single-
-    kernel MC stays the n_fft ≤ 256 fused path.
-    """
-    from sdr_tpu.link.fast import fast_core
-
-    # Same int32 counter guard as the main mc_simulate path (this
-    # branch returns before it — the per-channel accumulator and the
-    # bits-counted fill below are int32 too).
-    bits_per_pass = (
-        cfg.n_symbols * cfg.ofdm.n_fft * cfg.modulation.bits_per_symbol
-    )
-    if bits_per_pass * iters >= 2**31:
-        raise ValueError(
-            f"iters={iters} overflows the int32 per-channel bit counter "
-            f"({bits_per_pass} bits/pass); accumulate across mc_simulate "
-            "calls at the caller instead"
-        )
-    ch_ids = jnp.arange(cfg.n_channels, dtype=jnp.int32)
-    seed = jnp.asarray(seed, jnp.int32)
-
-    @jax.jit
-    def run(seed):
-        def body(i, acc):
-            key = jax.random.fold_in(
-                jax.random.PRNGKey(0), seed * jnp.int32(1_000_003) + i
-            )
-            errs, _ = fast_core(cfg, key, ch_ids, backend="auto")
-            return acc + errs
-
-        return lax.fori_loop(
-            0, iters, body, jnp.zeros((cfg.n_channels,), jnp.int32)
-        )
-
-    errs = run(seed)
-    bits = jnp.full(
-        (cfg.n_channels,),
-        cfg.n_symbols * cfg.ofdm.n_fft * cfg.modulation.bits_per_symbol * iters,
-        jnp.int32,
-    )
-    return errs, bits

@@ -30,10 +30,15 @@ from sdr_tpu.core.config import (
 )
 from sdr_tpu.ops import channel as chan
 from sdr_tpu.ops import equalize as eq
+from sdr_tpu.ops.fft import xla_ifft
 from sdr_tpu.ops.llr import llr_maxlog, llr_to_hard_bits
 from sdr_tpu.ops.modulation import modulate
 from sdr_tpu.ops.ofdm import ofdm_rx, ofdm_tx
 
+# The MIMO channel products and the DFT projection are small f32
+# products, not tensor-core work: full f32 keeps a GPU from running
+# them in TF32.
+_HI = jax.lax.Precision.HIGHEST
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
@@ -408,7 +413,7 @@ def rx_chain(
         eff_var = jnp.mean(
             jnp.broadcast_to(eff_var, s.shape), axis=-1, keepdims=True
         )
-        s = (jnp.fft.ifft(s, axis=-1) * jnp.float32(m**0.5)).astype(
+        s = (xla_ifft(s) * jnp.float32(m**0.5)).astype(
             jnp.complex64
         )
 
@@ -840,7 +845,9 @@ def mimo_llr_link(cfg: LinkConfig, key: jax.Array, bits: jnp.ndarray):
             Ht = Ht_full[..., 2:]
         else:
             Ht = Ht_full
-            rx_t = jnp.einsum("rts,tsn->rsn", Ht, tx).reshape(mc.n_rx, -1)
+            rx_t = jnp.einsum(
+                "rts,tsn->rsn", Ht, tx, precision=_HI
+            ).reshape(mc.n_rx, -1)
         h_t = jnp.moveaxis(Ht, -1, 0)[..., None]  # (S, n_rx, n_tx, 1)
         h = None
     else:
@@ -850,7 +857,9 @@ def mimo_llr_link(cfg: LinkConfig, key: jax.Array, bits: jnp.ndarray):
             H = chan.rician_flat(
                 k_fade, (mc.n_rx, mc.n_tx), cfg.channel.k_factor
             )
-        rx_t = jnp.einsum("rt,tn->rn", H, tx_flat)
+        rx_t = jnp.einsum(
+            "rt,tn->rn", H, tx_flat, precision=_HI
+        )
         h = H[..., None]  # flat: (n_rx, n_tx, 1) broadcasts over n_fft
     if impaired:
         from sdr_tpu.ops.sync import apply_cfo
@@ -923,8 +932,10 @@ def mimo_llr_link(cfg: LinkConfig, key: jax.Array, bits: jnp.ndarray):
         elif cfg.estimator == ChannelEstimator.DFT:
             # Frequency-selective composite (e.g. multipath + LO phase
             # noise): keep the shape, denoise onto the CP subspace.
-            h_b = raw @ jnp.asarray(
-                pi._dft_projection_full(n_fft, min(cp + 1, n_fft))
+            h_b = jnp.matmul(
+                raw,
+                jnp.asarray(pi._dft_projection_full(n_fft, min(cp + 1, n_fft))),
+                precision=_HI,
             )
         else:
             h_b = raw  # (..., N) raw per-subcarrier LS
@@ -1025,7 +1036,7 @@ def _mimo_llrs(cfg: LinkConfig, s, eff_var):
         eff_var = jnp.mean(
             jnp.broadcast_to(eff_var, s.shape), axis=-1, keepdims=True
         )
-        s = (jnp.fft.ifft(s, axis=-1) * jnp.float32(m**0.5)).astype(
+        s = (xla_ifft(s) * jnp.float32(m**0.5)).astype(
             jnp.complex64
         )
     return llr_maxlog(s, cfg.modulation, eff_var)

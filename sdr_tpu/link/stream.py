@@ -32,6 +32,7 @@ from sdr_tpu.core import prng
 from sdr_tpu.core.config import ChannelModel, Equalizer, LinkConfig
 from sdr_tpu.ops import channel as chan
 from sdr_tpu.ops import equalize as eq
+from sdr_tpu.ops.fft import xla_ifft
 from sdr_tpu.ops.llr import llr_maxlog, llr_to_hard_bits
 from sdr_tpu.ops.modulation import modulate
 from sdr_tpu.ops.ofdm import ofdm_rx, ofdm_tx
@@ -179,7 +180,7 @@ def _block_rx(
         eff = jnp.mean(
             jnp.broadcast_to(eff, s.shape), axis=-1, keepdims=True
         )
-        s = (jnp.fft.ifft(s, axis=-1) * jnp.float32(m**0.5)).astype(
+        s = (xla_ifft(s) * jnp.float32(m**0.5)).astype(
             jnp.complex64
         )
     return llr_to_hard_bits(llr_maxlog(s, cfg.modulation, eff))

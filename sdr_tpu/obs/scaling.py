@@ -6,22 +6,19 @@ the device count (fixed work per device — weak scaling), runs the
 sharded link on each subset, and reports samples/s and efficiency
 relative to the single-device rate.
 
-Timing uses the chained in-jit fori_loop methodology (docs/PERF.md):
-iterations are dependency-chained through the fold_in key and the final
-error count is fetched to host.
+Each rate is the median over ``reps`` calls of the jitted sharded
+link, each ending in ``block_until_ready`` (compile and warm-up
+excluded).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
-import numpy as np
 import jax
-import jax.numpy as jnp
-from jax import lax
 
 from sdr_tpu.core.config import LinkConfig
+from sdr_tpu.obs.autotune import median_seconds
 from sdr_tpu.parallel import make_link_mesh
 from sdr_tpu.parallel.shard import make_sharded_simulate_fn
 
@@ -34,35 +31,16 @@ class ScalePoint:
     efficiency: float  # vs perfect scaling of the first point
 
 
-def _rate(cfg: LinkConfig, mesh, iters: int, reps: int) -> float:
+def _rate(cfg: LinkConfig, mesh, reps: int) -> float:
     fn = make_sharded_simulate_fn(cfg, mesh)
-
-    @jax.jit
-    def run(key):
-        def body(i, acc):
-            # The error count feeds the next iteration's key: a REAL
-            # data dependency (a `* 0` chain is algebraically folded and
-            # the whole simulate body gets dead-code-eliminated).
-            errors, _ = fn(jax.random.fold_in(jax.random.fold_in(key, i), acc))
-            return acc + jnp.sum(errors)
-        return lax.fori_loop(0, iters, body, jnp.int32(0))
-
-    key = jax.random.PRNGKey(0)
-    _ = int(run(key))  # compile + sync
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _ = int(run(key))
-        best = min(best, time.perf_counter() - t0)
-    samples = cfg.n_channels * cfg.n_symbols * cfg.samples_per_symbol * iters
-    return samples / best
+    sec = median_seconds(fn, (jax.random.PRNGKey(0),), reps)
+    return cfg.n_channels * cfg.n_symbols * cfg.samples_per_symbol / sec
 
 
 def weak_scaling(
     cfg: LinkConfig,
     device_counts=None,
-    iters: int = 10,
-    reps: int = 3,
+    reps: int = 10,
 ) -> list:
     """Run the DP-sharded link at each device count; channels scale with
     devices, keeping cfg.n_channels PER DEVICE constant."""
@@ -75,7 +53,7 @@ def weak_scaling(
     for k in device_counts:
         mesh = make_link_mesh(1, k, devices=devices[:k])
         cfg_k = dataclasses.replace(cfg, n_channels=per_dev * k)
-        rate = _rate(cfg_k, mesh, iters, reps)
+        rate = _rate(cfg_k, mesh, reps)
         if base is None:
             base = rate
         points.append(

@@ -155,13 +155,12 @@ def ebno_sweep(
     completed points are loaded and the sweep resumes after them;
     every completed point rewrites the checkpoint atomically.
 
-    ``engine="fast"`` drives link.fast (the fused-kernel throughput
-    path — full-grid configs only, no pilots/impairments) with the
-    same jax.random stream discipline as the pipeline oracle;
-    ``engine="mc"`` drives the fully-fused Monte-Carlo kernel
-    (link.mc — on-core hardware PRNG, TPU only, ``mc_iters`` kernel
-    passes per invocation). Same accumulation/termination/checkpoint
-    logic either way, orders faster per bit. Checkpoints record the
+    ``engine="fast"`` drives link.fast (the batched throughput path —
+    full-grid configs only, no pilots/impairments) with the same
+    jax.random stream discipline as the pipeline oracle;
+    ``engine="mc"`` drives link.mc (``mc_iters`` fast-engine passes
+    per invocation, in one device loop). Same accumulation/
+    termination/checkpoint logic either way. Checkpoints record the
     engine, so sweeps from different engines never share state (their
     random streams differ)."""
     if engine not in ("pipeline", "fast", "mc"):

@@ -16,7 +16,7 @@ deployable SDR stack needs the standard three:
   and the CP adds no spectral lines.
 
 All three are pure jnp reductions over arbitrary batch axes — they run
-jit-compiled on TPU next to the link itself (FFTs for the PSD segments
+jit-compiled on the accelerator next to the link itself (FFTs for the PSD segments
 batch onto the same transform machinery the modem uses) and are exact,
 not sampled.
 """

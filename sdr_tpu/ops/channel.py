@@ -338,7 +338,7 @@ def apply_multipath(
     bit-exact vs the unsharded stream (tests/test_parallel.py).
 
     Implemented as an L-term shift-and-add (L <= cp_len+1 by config
-    validation) — fuses into a handful of VPU ops, no gather.
+    validation) — fuses into a handful of elementwise ops, no gather.
     """
     L = taps.shape[-1]
     n = samples.shape[-1]

@@ -1,4 +1,4 @@
-"""Fused receive chain: CP strip → FFT → MMSE equalize → max-log LLR.
+"""Receive chain: CP strip → FFT → MMSE equalize → max-log LLR.
 
 This is the hot path of the whole framework — the chain the north-star
 throughput metric counts (BASELINE.json). The reference's equivalent is
@@ -7,112 +7,24 @@ throughput metric counts (BASELINE.json). The reference's equivalent is
 demapper is soft (max-log LLR) and the chain is batched over
 (batch, n_syms, sym_len) planar float32 inputs.
 
-Backends (SDR_TPU_DEMOD_BACKEND / ``backend=``):
-- "jnp":    composition of the public ops (XLA fuses the elementwise
-            stages around its FFT).
-- "pallas": single fused Pallas TPU kernel — DFT-as-matmul on the MXU
-            with CP strip, equalization, and LLR fused in VMEM so the
-            only HBM traffic is the input read (+ LLR write when not
-            reducing). See sdr_tpu/kernels/demod_pallas.py. Gated to
-            n_fft <= 512 by the VMEM cost of the DFT matrices.
-- "fourstep": single fused Pallas kernel for LARGE n_fft (>= 1024) —
-            the transform factored as N1·N2 with an N2×N2 MXU matmul
-            and a chunk-axis VPU FFT (kernels/fourstep_pallas.py), so
-            the wideband numerology keeps the single-HBM-read property.
-- "hybrid": XLA FFT for the transform + the fused equalize/LLR Pallas
-            kernel (kernels/llr_pallas.py) — any n_fft % 128 == 0.
-- "auto":   on TPU: pallas when supported, else fourstep, else hybrid,
-            else jnp.
+One implementation: the composition of the public ops, compiled by XLA
+(the transform goes to the platform FFT library, the CP strip,
+equalizer, LLR and error count fuse around it). The same function is
+the reference the on-device checks compare against, run on the CPU.
 
-Inputs are PLANAR (separate re/im float32) because that is the layout
-the TPU runtime transfers and Pallas tiles; complex exists only inside.
+Inputs are PLANAR (separate re/im float32); complex exists only inside.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
 
 from sdr_tpu.core.config import Modulation
-from sdr_tpu.ops.equalize import equalize_mmse
+from sdr_tpu.ops.equalize import equalize_mmse, equalize_mmse_fde
 from sdr_tpu.ops.llr import llr_maxlog
+from sdr_tpu.ops.modulation import _ints_to_bits
 from sdr_tpu.ops.ofdm import ofdm_rx
-
-
-def _default_backend() -> str:
-    return os.environ.get("SDR_TPU_DEMOD_BACKEND", "auto")
-
-
-def select_backend(re_shape, hr_shape, cp_len: int, mod, platform: str) -> str:
-    """Auto-dispatch rule (pure; unit-tested against every regime).
-
-    The fused kernels require a per-link (batch, 1, n_fft) or
-    per-symbol (batch, n_syms, n_fft) channel plane; other
-    broadcastable h layouts (rank-1, scalar, ...) are only handled by
-    the jnp composition. On CPU the jnp path always wins — interpreted
-    Pallas is orders of magnitude slower.
-    """
-    from sdr_tpu.kernels.demod_pallas import supported as _pl_ok
-    from sdr_tpu.kernels.fourstep_pallas import supported as _fs_ok
-    from sdr_tpu.kernels.fourstep_split_pallas import supported as _fs2_ok
-    from sdr_tpu.kernels.llr_pallas import supported as _llr_ok
-
-    if platform == "cpu" or len(re_shape) != 3:
-        return "jnp"
-    n_fft = re_shape[2] - cp_len
-    h_canonical = tuple(hr_shape) in (
-        (re_shape[0], 1, n_fft),
-        (re_shape[0], re_shape[1], n_fft),
-    )
-    if not h_canonical:
-        return "jnp"
-    if _pl_ok(re_shape, cp_len, mod):
-        return "pallas"
-    # Wideband: the HBM-staged split four-step wins every same-window
-    # hardware A/B over both the single-kernel four-step and the XLA-
-    # FFT hybrid (docs/hw_campaign.jsonl, docs/PERF.md round 2b/2c).
-    if _fs2_ok(re_shape, cp_len, mod, h_syms=hr_shape[1]):
-        return "fourstep2"
-    if _fs_ok(re_shape, cp_len, mod, h_syms=hr_shape[1]):
-        return "fourstep"
-    if _llr_ok((re_shape[0], re_shape[1], re_shape[2] - cp_len), mod):
-        return "hybrid"
-    return "jnp"
-
-
-def demod_chain_jnp(
-    re: jnp.ndarray,
-    im: jnp.ndarray,
-    hr: jnp.ndarray,
-    hi: jnp.ndarray,
-    cp_len: int,
-    mod: Modulation,
-    noise_var: float,
-    reduce_sum: bool = False,
-    despread: bool = False,
-) -> jnp.ndarray:
-    """Reference composition of the public ops (always available).
-
-    ``despread``: SC-FDE (full-grid SC-FDMA) — the biased per-tone
-    MMSE with symbol-level bias correction (the fused kernels'
-    convention, ops.equalize.equalize_mmse_fde; measured 3× fewer
-    errors than ZF-FDE on faded links — a notch's ZF noise
-    enhancement despreads over EVERY symbol)."""
-    x = jax.lax.complex(re, im)
-    h = jax.lax.complex(hr, hi)
-    y = ofdm_rx(x, cp_len)
-    if despread:
-        from sdr_tpu.ops.equalize import equalize_mmse_fde
-
-        s, eff = equalize_mmse_fde(y, h, noise_var)
-    else:
-        s, eff = equalize_mmse(y, h, noise_var)
-    llr = llr_maxlog(s, mod, eff)
-    if reduce_sum:
-        return jnp.sum(llr, dtype=jnp.float32)
-    return llr
 
 
 def demod_chain(
@@ -124,7 +36,6 @@ def demod_chain(
     mod: Modulation,
     noise_var: float,
     reduce_sum: bool = False,
-    backend: str | None = None,
     despread: bool = False,
 ) -> jnp.ndarray:
     """Demod chain over (..., n_syms, sym_len) planar inputs.
@@ -132,66 +43,24 @@ def demod_chain(
     hr/hi broadcast against the post-FFT grid (..., n_syms, n_fft).
     Returns LLRs (..., n_syms, n_fft * bits_per_symbol) float32, or
     their scalar sum when ``reduce_sum`` (bench/reduction use).
-    ``despread`` selects the SC-FDE receive chain (full-grid SC-FDMA);
-    fused only in the single-matmul kernel — other backends fall back
-    to the jnp composition.
+
+    ``despread``: SC-FDE (full-grid SC-FDMA) — the biased per-tone
+    MMSE with symbol-level bias correction (ops.equalize.
+    equalize_mmse_fde; fewer errors than ZF-FDE on faded links — a
+    notch's ZF noise enhancement despreads over EVERY symbol).
     """
-    b = backend or _default_backend()
-    if b == "auto":
-        b = select_backend(re.shape, hr.shape, cp_len, mod, jax.default_backend())
-    if despread and b not in ("pallas", "jnp"):
-        # Wideband SC-FDE (round 4): the three-phase fused kernel
-        # covers the reduce_sum terminal at n_fft >= 1024; the full-LLR
-        # plane remains a jnp (validation) surface.
-        if b in ("fourstep", "fourstep2") and reduce_sum:
-            from sdr_tpu.kernels.fourstep_split_pallas import (
-                demod_chain_fourstep2_fde,
-                supported_fde,
-            )
-
-            if supported_fde(re.shape, cp_len, mod, h_syms=hr.shape[1]):
-                return demod_chain_fourstep2_fde(
-                    re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=True
-                )
-        b = "jnp"  # SC-FDE LLR planes: single-matmul kernel or jnp
-    if b == "pallas":
-        from sdr_tpu.kernels.demod_pallas import demod_chain_pallas
-        from sdr_tpu.kernels.demod_pallas import supported as _pl_ok
-        from sdr_tpu.kernels.fourstep_pallas import supported as _fs_ok
-
-        # "pallas" selects the fused-kernel FAMILY: the single-matmul
-        # kernel where it fits, the four-step kernel at wideband sizes.
-        if not _pl_ok(re.shape, cp_len, mod) and _fs_ok(
-            re.shape, cp_len, mod, h_syms=hr.shape[1]
-        ):
-            b = "jnp" if despread else "fourstep"
+    with jax.named_scope("demod_fft"):
+        y = ofdm_rx(jax.lax.complex(re, im), cp_len)
+    with jax.named_scope("demod_tail"):
+        h = jax.lax.complex(hr, hi)
+        if despread:
+            s, eff = equalize_mmse_fde(y, h, noise_var)
         else:
-            return demod_chain_pallas(
-                re, im, hr, hi, cp_len, mod, noise_var,
-                reduce_sum=reduce_sum, despread=despread,
-            )
-    if b == "fourstep":
-        from sdr_tpu.kernels.fourstep_pallas import demod_chain_fourstep
-
-        return demod_chain_fourstep(
-            re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum
-        )
-    if b == "fourstep2":
-        from sdr_tpu.kernels.fourstep_split_pallas import demod_chain_fourstep2
-
-        return demod_chain_fourstep2(
-            re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum
-        )
-    if b == "hybrid":
-        return demod_chain_hybrid(
-            re, im, hr, hi, cp_len, mod, noise_var, reduce_sum=reduce_sum
-        )
-    if b != "jnp":
-        raise ValueError(f"unknown demod backend {b!r}")
-    return demod_chain_jnp(
-        re, im, hr, hi, cp_len, mod, noise_var, reduce_sum,
-        despread=despread,
-    )
+            s, eff = equalize_mmse(y, h, noise_var)
+        llr = llr_maxlog(s, mod, eff)
+        if reduce_sum:
+            return jnp.sum(llr, dtype=jnp.float32)
+        return llr
 
 
 def demod_count_chain(
@@ -203,249 +72,19 @@ def demod_count_chain(
     cp_len: int,
     mod: Modulation,
     noise_var: float,
-    backend: str | None = None,
     despread: bool = False,
 ) -> jnp.ndarray:
     """Demod + hard-decision bit-error count vs transmitted indices.
 
-    The BER-counting terminal of the receive chain: where the fused
-    count kernel applies (single-matmul sizes on TPU), the comparison
-    happens IN the kernel and no LLR plane ever reaches HBM — the
-    dominant cost of the full-LLR fast path (the N·bps float32 write
-    plus the bit-order restore transpose is ~3x the kernel's own input
-    traffic). Everywhere else it falls back to counting on the public
-    LLRs — decision-identical by construction. Returns per-channel
+    The BER-counting terminal of the receive chain: hard decisions are
+    the LLR signs (bit = 1 iff LLR < 0), compared against the bits of
+    ``idx`` (batch, n_syms, n_fft) and summed per channel. Returns
     (batch,) int32 error counts.
     """
-    from sdr_tpu.ops.modulation import _ints_to_bits
-
-    b = backend or _default_backend()
-    if b == "auto":
-        b = select_backend(re.shape, hr.shape, cp_len, mod, jax.default_backend())
-    idx_ok = idx.shape == (re.shape[0], re.shape[1], re.shape[2] - cp_len)
-    if b == "pallas" and idx_ok:
-        from sdr_tpu.kernels.demod_pallas import demod_count_pallas
-        from sdr_tpu.kernels.demod_pallas import supported as _pl_ok
-
-        if _pl_ok(re.shape, cp_len, mod):
-            return demod_count_pallas(
-                re, im, hr, hi, idx, cp_len, mod, noise_var,
-                despread=despread,
-            )
-    if despread:
-        # Wideband SC-FDE count (round 4): the fused three-phase
-        # kernel compares time-domain decisions in phase C.
-        if b in ("pallas", "fourstep", "fourstep2") and idx_ok:
-            from sdr_tpu.kernels.fourstep_split_pallas import (
-                demod_chain_fourstep2_fde,
-                supported_fde,
-            )
-
-            if supported_fde(re.shape, cp_len, mod, h_syms=hr.shape[1]):
-                return demod_chain_fourstep2_fde(
-                    re, im, hr, hi, cp_len, mod, noise_var, count_idx=idx
-                )
-        # SC-FDE count outside the fused kernels: count on the jnp
-        # SC-FDE LLRs (decision-identical fallback).
-        llr = demod_chain(
-            re, im, hr, hi, cp_len, mod, noise_var, backend="jnp",
-            despread=True,
-        )
+    llr = demod_chain(
+        re, im, hr, hi, cp_len, mod, noise_var, despread=despread
+    )
+    with jax.named_scope("count"):
         hard = (llr < 0).astype(jnp.int8)
         bits = _ints_to_bits(idx, mod.bits_per_symbol)
         return jnp.sum((hard != bits).astype(jnp.int32), axis=(1, 2))
-    if b in ("pallas", "fourstep", "fourstep2") and idx_ok:
-        from sdr_tpu.kernels.fourstep_split_pallas import (
-            demod_chain_fourstep2,
-            supported as _fs2_ok,
-        )
-
-        # Wideband count terminal: the split four-step with in-kernel
-        # comparison (the "pallas" family auto-routes here at
-        # n_fft >= 1024 because the count variant avoids the digit/bit
-        # restore transpose the LLR fallback would pay).
-        if _fs2_ok(re.shape, cp_len, mod, h_syms=hr.shape[1]):
-            return demod_chain_fourstep2(
-                re, im, hr, hi, cp_len, mod, noise_var, count_idx=idx
-            )
-    llr = demod_chain(
-        re, im, hr, hi, cp_len, mod, noise_var,
-        backend=None if backend == "auto" else backend,
-    )
-    hard = (llr < 0).astype(jnp.int8)
-    bits = _ints_to_bits(idx, mod.bits_per_symbol)
-    return jnp.sum((hard != bits).astype(jnp.int32), axis=(1, 2))
-
-
-def demod_chain_hybrid(
-    re: jnp.ndarray,
-    im: jnp.ndarray,
-    hr: jnp.ndarray,
-    hi: jnp.ndarray,
-    cp_len: int,
-    mod: Modulation,
-    noise_var: float,
-    reduce_sum: bool = False,
-) -> jnp.ndarray:
-    """XLA FFT + fused Pallas equalize/LLR — the large-n_fft fast path."""
-    from sdr_tpu.kernels.llr_pallas import llr_chain_pallas
-
-    y = ofdm_rx(jax.lax.complex(re, im), cp_len)
-    return llr_chain_pallas(
-        jnp.real(y), jnp.imag(y), hr, hi, mod, noise_var, reduce_sum=reduce_sum
-    )
-
-
-# ---------------------------------------------------------------------------
-# Channels-last surface (round 5): the library entry points for the
-# (time, channel) layout the pipelined kernel family
-# (kernels/demod_cl_pallas.py) is built around. These are the SAME code
-# paths bench.py measures — promoting the headline kernel from a bench
-# artifact to the framework's default demod terminal for channels-last
-# data (VERDICT round 4 item 1).
-#
-# Layout contract (demod_cl_pallas module docstring): planar samples
-# (n_syms*sym_len, batch) time-major, channel plane (n_fft, batch) in
-# natural bin order, indices (n_syms*n_fft, batch).
-# ---------------------------------------------------------------------------
-
-
-def select_backend_cl(n_fft: int, batch: int, n_syms: int, mod,
-                      platform: str) -> str:
-    """Auto rule for the channels-last terminals: the pipelined Pallas
-    kernel wherever it lowers (TPU only — ``pltpu.emit_pipeline`` has
-    no interpret lowering), else the pure-jnp twin (identical math,
-    any backend)."""
-    from sdr_tpu.kernels.demod_cl_pallas import supported_cl
-
-    if platform == "tpu" and supported_cl(n_fft, batch, n_syms, mod):
-        return "cl"
-    return "jnp"
-
-
-def _resolve_cl(re_t, hr_t, cp_len, mod, backend):
-    n_fft = hr_t.shape[0]
-    rows, batch = re_t.shape
-    n_syms = rows // (n_fft + cp_len)
-    b = backend or _default_backend()
-    if b in ("auto", "pallas", "fourstep", "fourstep2", "hybrid"):
-        # Any fused-family request maps to the one CL kernel family.
-        b = select_backend_cl(n_fft, batch, n_syms, mod, jax.default_backend())
-    return b
-
-
-def _h_natural(hr_t, hi_t, h_in_dif_order):
-    """Undo a caller-side DIF permutation for the jnp fallback."""
-    if not h_in_dif_order:
-        return hr_t, hi_t
-    from sdr_tpu.kernels.demod_cl_pallas import inv_dif_perm
-
-    inv = inv_dif_perm(hr_t.shape[0])
-    return hr_t[inv], hi_t[inv]
-
-
-def demod_sum_chain_cl(
-    re_t: jnp.ndarray,
-    im_t: jnp.ndarray,
-    hr_t: jnp.ndarray,
-    hi_t: jnp.ndarray,
-    cp_len: int,
-    mod: Modulation,
-    noise_var: float,
-    backend: str | None = None,
-    h_in_dif_order: bool = False,
-) -> jnp.ndarray:
-    """Scalar LLR sum over a channels-last grid (the bench terminal)."""
-    b = _resolve_cl(re_t, hr_t, cp_len, mod, backend)
-    if b == "cl":
-        from sdr_tpu.kernels.demod_cl_pallas import demod_sum_cl
-
-        return demod_sum_cl(
-            re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var,
-            h_in_dif_order=h_in_dif_order,
-        )
-    if b != "jnp":
-        raise ValueError(f"unknown channels-last backend {b!r}")
-    from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp
-
-    hr_n, hi_n = _h_natural(hr_t, hi_t, h_in_dif_order)
-    return demod_cl_jnp(
-        re_t, im_t, hr_n, hi_n, cp_len, mod, noise_var, out_mode="sum"
-    )
-
-
-def demod_count_chain_cl(
-    re_t: jnp.ndarray,
-    im_t: jnp.ndarray,
-    hr_t: jnp.ndarray,
-    hi_t: jnp.ndarray,
-    idx_t: jnp.ndarray,
-    cp_len: int,
-    mod: Modulation,
-    noise_var: float,
-    backend: str | None = None,
-    h_in_dif_order: bool = False,
-) -> jnp.ndarray:
-    """Per-channel (batch,) int32 hard-decision bit-error counts over a
-    channels-last grid — the fast engine's demod terminal when it runs
-    in the channels-last layout (link.fast ``layout="cl"``)."""
-    b = _resolve_cl(re_t, hr_t, cp_len, mod, backend)
-    if b == "cl":
-        from sdr_tpu.kernels.demod_cl_pallas import demod_count_cl
-
-        return demod_count_cl(
-            re_t, im_t, hr_t, hi_t, idx_t, cp_len, mod, noise_var,
-            h_in_dif_order=h_in_dif_order,
-        )
-    if b != "jnp":
-        raise ValueError(f"unknown channels-last backend {b!r}")
-    from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp
-
-    hr_n, hi_n = _h_natural(hr_t, hi_t, h_in_dif_order)
-    return demod_cl_jnp(
-        re_t, im_t, hr_n, hi_n, cp_len, mod, noise_var,
-        out_mode="count", idx_t=idx_t,
-    )
-
-
-def demod_llr_chain_cl(
-    re_t: jnp.ndarray,
-    im_t: jnp.ndarray,
-    hr_t: jnp.ndarray,
-    hi_t: jnp.ndarray,
-    cp_len: int,
-    mod: Modulation,
-    noise_var: float,
-    backend: str | None = None,
-    out_dtype=jnp.float32,
-    kernel_order: bool = False,
-    h_in_dif_order: bool = False,
-) -> jnp.ndarray:
-    """LLR-materializing channels-last terminal — what a coded receiver
-    consumes (the reference's product is the demapper output,
-    modulation.hpp:96-112; here soft LLRs instead of hard bytes).
-
-    ``kernel_order=True`` returns the kernel-native
-    (n_syms·bps·n_fft, batch) plane (rows in DIF bin order — compose
-    any (de)interleaver with ``kernels.demod_cl_pallas.dif_perm`` at
-    trace time instead of paying a restore pass);
-    ``out_dtype=jnp.bfloat16`` halves the dominant output write.
-    """
-    b = _resolve_cl(re_t, hr_t, cp_len, mod, backend)
-    if b == "cl":
-        from sdr_tpu.kernels.demod_cl_pallas import demod_llr_cl
-
-        return demod_llr_cl(
-            re_t, im_t, hr_t, hi_t, cp_len, mod, noise_var,
-            out_dtype=out_dtype, kernel_order=kernel_order,
-            h_in_dif_order=h_in_dif_order,
-        )
-    if b != "jnp":
-        raise ValueError(f"unknown channels-last backend {b!r}")
-    from sdr_tpu.kernels.demod_cl_pallas import demod_cl_jnp
-
-    hr_n, hi_n = _h_natural(hr_t, hi_t, h_in_dif_order)
-    return demod_cl_jnp(
-        re_t, im_t, hr_n, hi_n, cp_len, mod, noise_var, out_mode="llr",
-        out_dtype=out_dtype, kernel_order=kernel_order,
-    )

@@ -7,7 +7,7 @@ soft decoder. Default code: the ubiquitous K=7, rate-1/2
 (171, 133)_octal code (802.11a — the same numerology family as the
 reference's OFDM comment, ofdm.hpp:2-3).
 
-TPU-first formulation: the trellis is fully vectorized over states —
+Vectorized formulation: the trellis is fully vectorized over states —
 the add-compare-select step is a gather over two static predecessor
 tables + elementwise max across the whole (batch, 64-state) front, one
 ``lax.scan`` step per information bit; traceback is a reverse scan over
@@ -183,7 +183,10 @@ def viterbi_decode(
 
     def fwd(pm, l):
         # l: (..., R). Branch metrics for each (next_state, pred slot):
-        bm = jnp.einsum("...r,spr->...sp", 0.5 * l, prev_sign)  # (..., S, 2)
+        bm = jnp.einsum(
+            "...r,spr->...sp", 0.5 * l, prev_sign,
+            precision=lax.Precision.HIGHEST,
+        )  # (..., S, 2)
         cand = pm[..., prev_state_j] + bm  # (..., S, 2)
         take1 = cand[..., 1] > cand[..., 0]  # (..., S) bool decision
         npm = jnp.where(take1, cand[..., 1], cand[..., 0])

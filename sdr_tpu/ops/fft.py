@@ -1,4 +1,4 @@
-"""FFT/IFFT with the reference's conventions and pluggable TPU backends.
+"""FFT/IFFT with the reference's conventions and two backends.
 
 Contract (from /root/reference/lib/inc/fft.hpp):
 
@@ -11,16 +11,15 @@ Contract (from /root/reference/lib/inc/fft.hpp):
 These are exactly the numpy/XLA conventions, so the "xla" backend is a
 direct ``jnp.fft`` call. The reference's bit-reverse permutation
 (fft.hpp:35-51) and twiddle recurrence with periodic renormalization
-(fft.hpp:113-150) are scalar-CPU artifacts with no TPU analog: backends
-here use either XLA's native FFT or a Cooley–Tukey *four-step* matmul
-factorization that runs the butterflies as dense DFT-matrix products on
-the MXU (see sdr_tpu/kernels/fft_matmul.py).
+(fft.hpp:113-150) are scalar-CPU artifacts: backends here use either
+XLA's FFT or a Cooley–Tukey *four-step* factorization that runs the
+butterflies as dense DFT-matrix products (sdr_tpu/kernels/fft_matmul.py).
 
-Backends:
-- "xla":    jnp.fft — XLA's built-in FFT.
-- "matmul": MXU matmul-DFT (four-step decomposition), batched.
-- "auto":   per-size choice (xla for small/medium transforms, matmul
-            from the measured crossover up). Tuned by benchmarks.
+Backends (``SDR_TPU_FFT_BACKEND`` sets the process default):
+- "xla":    jnp.fft — XLA's FFT (the platform FFT library on a GPU).
+- "matmul": matmul DFT (four-step decomposition), batched.
+- "auto":   an alias of "xla": no size has been measured at which the
+            matmul DFT beats the GPU's FFT library.
 
 All functions operate on the last axis and accept arbitrary leading
 batch dims.
@@ -44,20 +43,6 @@ if _DEFAULT_BACKEND not in ("auto", "xla", "matmul"):
         "expected auto|xla|matmul"
     )
 
-# Crossover where the matmul-DFT backend starts beating XLA's FFT on
-# TPU (batched transforms, measured on v5e — see docs/PERF.md): XLA
-# wins for N <= 4096 (e.g. 343 vs 256 Gelem/s at N=256), matmul wins
-# from N = 8192 up (404 vs 302 at 8192, 329 vs 185 at 16384).
-# Refined by sdr_tpu.obs.autotune.
-_MATMUL_MIN_N = 8192
-
-
-def set_matmul_min_n(n: int) -> None:
-    """Set the auto-backend crossover (from obs.autotune measurements)."""
-    global _MATMUL_MIN_N
-    _MATMUL_MIN_N = int(n)
-
-
 def set_default_backend(backend: Backend) -> None:
     global _DEFAULT_BACKEND
     if backend not in ("auto", "xla", "matmul"):
@@ -75,11 +60,9 @@ def _validate(n: int) -> None:
         raise ValueError(f"The sequence size must be a power of 2, got {n}")
 
 
-def _resolve(n: int, backend: Backend | None) -> str:
+def _resolve(backend: Backend | None) -> str:
     b = backend or _DEFAULT_BACKEND
-    if b == "auto":
-        return "matmul" if n >= _MATMUL_MIN_N else "xla"
-    return b
+    return "xla" if b == "auto" else b
 
 
 def fft(x: jnp.ndarray, backend: Backend | None = None) -> jnp.ndarray:
@@ -87,11 +70,26 @@ def fft(x: jnp.ndarray, backend: Backend | None = None) -> jnp.ndarray:
     n = x.shape[-1]
     _validate(n)
     x = x.astype(jnp.complex64)
-    if _resolve(n, backend) == "matmul":
+    if _resolve(backend) == "matmul":
         from sdr_tpu.kernels.fft_matmul import matmul_fft
 
         return matmul_fft(x, inverse=False)
     return jnp.fft.fft(x, axis=-1)
+
+
+def xla_ifft(x: jnp.ndarray) -> jnp.ndarray:
+    """Inverse DFT over the last axis, 1/N-scaled, any length.
+
+    Taken through the forward transform, ifft(x) = conj(fft(conj(x)))/N,
+    so the conjugations and the scale are elementwise work XLA fuses.
+    XLA's own inverse scales in a separate library call on the GPU
+    whose element count overflows from 2^31 elements up: at 524,288 x
+    4096 points it returned values off by a factor of thousands
+    (measured on an H100), where this form is exact.
+    """
+    n = x.shape[-1]
+    y = jnp.fft.fft(jnp.conj(x), axis=-1)
+    return jnp.conj(y) * jnp.asarray(1.0 / n, y.real.dtype)
 
 
 def ifft(x: jnp.ndarray, backend: Backend | None = None) -> jnp.ndarray:
@@ -99,8 +97,8 @@ def ifft(x: jnp.ndarray, backend: Backend | None = None) -> jnp.ndarray:
     n = x.shape[-1]
     _validate(n)
     x = x.astype(jnp.complex64)
-    if _resolve(n, backend) == "matmul":
+    if _resolve(backend) == "matmul":
         from sdr_tpu.kernels.fft_matmul import matmul_fft
 
         return matmul_fft(x, inverse=True)
-    return jnp.fft.ifft(x, axis=-1)
+    return xla_ifft(x)

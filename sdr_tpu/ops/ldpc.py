@@ -3,12 +3,12 @@
 The modern-FEC counterpart of ops/fec.py's convolutional/Viterbi stack
 (the reference library has no FEC at all — its 16-QAM Gray comment
 merely gestures at coded systems, modulation.hpp:25-27). Everything is
-designed TPU-first around the quasi-cyclic structure:
+designed around the quasi-cyclic structure:
 
 - **Code**: H is an (mb × nb) base matrix of Z×Z blocks, each either
-  zero or a cyclic shift of I. The lifting size Z defaults to 128 — one
-  full TPU lane register, so every per-block message is a (batch, Z)
-  tile and a cyclic shift is a lane rotate (two slices + concat).
+  zero or a cyclic shift of I. The lifting size Z defaults to 128, so
+  every per-block message is a (batch, Z) plane and a cyclic shift is
+  two slices + a concat along the Z axis.
 - **Construction** (`make_qc_ldpc`): information part with fixed column
   weight 3 and seeded random shifts, retried until the lifted graph has
   no 4-cycles (girth ≥ 6: for every pair of rows sharing two columns,
@@ -18,12 +18,11 @@ designed TPU-first around the quasi-cyclic structure:
 - **Encode** (`ldpc_encode`): r = A·s over GF(2) (trace-unrolled block
   rotates + XOR on int8 lanes), then p_i = p_{i-1} ⊕ r_i down the
   bidiagonal — O(edges) lane ops, no generator matrix materialized.
-- **Decode** (`ldpc_decode`): flooding offset min-sum. The base matrix
-  is static, so the per-row edge loops unroll at trace time; messages
-  are per-edge (…, Z) float32 arrays held in variable alignment and
-  rotated into check alignment for the row update. Two passes per row
-  (min1/min2/sign-product, then per-edge exclusion) — the standard
-  dataflow, shaped so every op is an (batch, Z) VPU tile. A fixed
+- **Decode** (`ldpc_decode`): offset min-sum, flooding or layered
+  schedule. The base matrix is static, so the per-row edge loops unroll
+  at trace time; messages are per-edge (…, Z) float32 arrays. Two
+  passes per row (min1/min2/sign-product, then per-edge exclusion) —
+  the standard dataflow, every op elementwise over (batch, Z). A fixed
   iteration count keeps the loop jit-static.
 
 LLR convention matches the demapper (ops/llr.py): positive = bit 0.
@@ -175,70 +174,63 @@ def ldpc_syndrome(code: QcLdpcCode, cw: jnp.ndarray) -> jnp.ndarray:
     return jnp.concatenate(rows, axis=-1)
 
 
+def _row_update(ms, beta):
+    """Offset min-sum check update for one base row: check-aligned
+    variable-to-check planes in, check-to-variable planes out (sign
+    product times the self-excluded minimum magnitude less the offset)."""
+    sign = None
+    min1 = min2 = None
+    for m in ms:
+        a = jnp.abs(m)
+        sg = jnp.where(m < 0, jnp.float32(-1.0), jnp.float32(1.0))
+        sign = sg if sign is None else sign * sg
+        if min1 is None:
+            min1, min2 = a, jnp.full_like(a, 3.4e38)
+        else:
+            min2 = jnp.minimum(min2, jnp.maximum(min1, a))
+            min1 = jnp.minimum(min1, a)
+    out = []
+    for m in ms:
+        a = jnp.abs(m)
+        sg = jnp.where(m < 0, jnp.float32(-1.0), jnp.float32(1.0))
+        excl = jnp.where(a == min1, min2, min1)
+        out.append(sign * sg * jnp.maximum(excl - beta, 0.0))
+    return out
+
+
 def ldpc_decode(
     code: QcLdpcCode,
     llr: jnp.ndarray,
     iters: int = 25,
     offset: float = 0.5,
-    backend: str = "auto",
     schedule: str = "flooding",
 ) -> jnp.ndarray:
     """Offset min-sum over (..., n) channel LLRs → (..., n) hard bits
     (int8). Positive LLR = bit 0 (demapper convention).
 
-    Messages are per-edge (…, Z) float32 planes in VARIABLE alignment;
-    the row update rotates them into check alignment, computes the
-    sign product and the two smallest magnitudes in one unrolled pass,
-    then emits each edge's self-excluded min with the offset applied.
-    The iteration loop is a ``lax.fori_loop`` with the stacked edge
-    messages as carry — fixed trip count, jit-static structure.
+    ``schedule="flooding"``: every check row updates from the previous
+    iteration's messages. Messages are per-edge (…, Z) float32 planes
+    in VARIABLE alignment; the row update rotates them into check
+    alignment, computes the sign product and the two smallest
+    magnitudes in one unrolled pass, then emits each edge's
+    self-excluded min with the offset applied.
 
-    ``backend="auto"`` routes 2-D 128-tiling batches to the fused
-    sublane-major kernel (kernels/ldpc_pallas.ldpc_decode_pallas_sublane
-    — DECISION-IDENTICAL for the flooding schedule, measured 1.6× over
-    the round-2c lane-major kernel: Z rides the sublane axis so cyclic
-    shifts are cheap sublane concats and sign transport is bitwise);
-    ``backend="pallas"`` forces the round-2c lane-major kernel for
-    128-multiple-Z codes, the sublane kernel otherwise. Anything else
-    decodes in jnp.
+    ``schedule="layered"``: the base rows update in order within an
+    iteration, each from the posteriors the rows before it already
+    refreshed, so the same waterfall takes about half the iterations
+    (use iters ≈ half the flooding count). Messages are held in CHECK
+    alignment and only the per-variable totals rotate. Statistically
+    matched to flooding, not decision-identical.
 
-    ``schedule="layered"`` (sublane kernel only) halves the iteration
-    count for the same waterfall — use iters ≈ half the flooding
-    count; statistically gated, not decision-identical.
+    Either way the iteration loop is a ``lax.fori_loop`` (fixed trip
+    count, jit-static structure) whose body unrolls the static base
+    matrix at trace time.
     """
     z, nb, mb = code.z, code.nb, code.mb
     if llr.shape[-1] != code.n:
         raise ValueError(f"llr length {llr.shape[-1]} != n={code.n}")
-    if backend in ("auto", "pallas", "sublane") and llr.ndim == 2:
-        from sdr_tpu.kernels.ldpc_pallas import (
-            ldpc_decode_pallas,
-            ldpc_decode_pallas_sublane,
-            supported as _pl_ok,
-            supported_sublane as _sub_ok,
-        )
-
-        on_tpu = jax.default_backend() == "tpu"
-        if backend == "pallas" and _pl_ok(code, llr.shape[0]) and (
-            schedule == "flooding"
-        ):
-            return ldpc_decode_pallas(code, llr, iters=iters, offset=offset)
-        if _sub_ok(code, llr.shape[0]) and (
-            backend in ("pallas", "sublane")
-            or on_tpu
-            or schedule == "layered"  # only the sublane kernel has it
-        ):
-            return ldpc_decode_pallas_sublane(
-                code, llr, iters=iters, offset=offset, schedule=schedule
-            )
-        if schedule == "flooding" and _pl_ok(code, llr.shape[0]) and (
-            backend == "pallas" or on_tpu
-        ):
-            return ldpc_decode_pallas(code, llr, iters=iters, offset=offset)
-    if schedule != "flooding":
-        raise ValueError(
-            "schedule='layered' needs the sublane kernel: 2-D LLRs with "
-            "a 128-tiling batch (and backend auto/pallas/sublane)"
-        )
+    if schedule not in ("flooding", "layered"):
+        raise ValueError(f"unknown schedule {schedule!r}")
     ch = llr.reshape(llr.shape[:-1] + (nb, z)).astype(jnp.float32)
     edges = [(i, j, s) for i in range(mb) for j, s in code.row_edges(i)]
     e_by_row = [
@@ -248,7 +240,8 @@ def ldpc_decode(
         [e for e, (_, j, _) in enumerate(edges) if j == c] for c in range(nb)
     ]
     beta = jnp.float32(offset)
-    batch_shape = ch.shape[:-2]
+    # Built from ch so the carry has ch's sharding type under shard_map.
+    c2v0 = jnp.stack([jnp.zeros_like(ch[..., 0, :])] * len(edges))
 
     def totals(c2v):
         """Per-variable-block posterior: channel + all incoming c2v."""
@@ -260,40 +253,38 @@ def ldpc_decode(
             out.append(t)
         return out
 
-    def body(_, c2v):
-        tot = totals(c2v)
-        new = [None] * len(edges)
-        for r in range(mb):
-            # Check alignment: v2c for each edge of the row.
-            ms = []
-            for e in e_by_row[r]:
-                _, j, s = edges[e]
-                ms.append(_rot(tot[j] - c2v[e], s, z))
-            # min1/min2 magnitudes + overall sign product.
-            sign = None
-            min1 = min2 = None
-            for m in ms:
-                a = jnp.abs(m)
-                sg = jnp.where(m < 0, jnp.float32(-1.0), jnp.float32(1.0))
-                sign = sg if sign is None else sign * sg
-                if min1 is None:
-                    min1, min2 = a, jnp.full_like(a, 3.4e38)
-                else:
-                    min2 = jnp.minimum(min2, jnp.maximum(min1, a))
-                    min1 = jnp.minimum(min1, a)
-            for m, e in zip(ms, e_by_row[r]):
-                a = jnp.abs(m)
-                sg = jnp.where(m < 0, jnp.float32(-1.0), jnp.float32(1.0))
-                excl = jnp.where(a == min1, min2, min1)
-                mag = jnp.maximum(excl - beta, 0.0)
-                _, j, s = edges[e]
-                new[e] = _rot(sign * sg * mag, -s, z)  # back to var align
-        return jnp.stack(new)
+    if schedule == "layered":
+        def body(_, carry):
+            c2v, tot = carry
+            c2v = list(c2v)
+            tot = [tot[..., j, :] for j in range(nb)]
+            for r in range(mb):
+                ms = [
+                    _rot(tot[edges[e][1]], edges[e][2], z) - c2v[e]
+                    for e in e_by_row[r]
+                ]
+                for v, e in zip(_row_update(ms, beta), e_by_row[r]):
+                    _, j, s = edges[e]
+                    tot[j] = tot[j] + _rot(v - c2v[e], -s, z)
+                    c2v[e] = v
+            return jnp.stack(c2v), jnp.stack(tot, axis=-2)
 
-    c2v0 = jnp.zeros((len(edges),) + batch_shape + (z,), jnp.float32)
-    c2v = jax.lax.fori_loop(0, iters, body, c2v0)
-    tot = totals(c2v)
-    hard = [
-        (tot[j] < 0).astype(jnp.int8) for j in range(nb)
-    ]
+        _, tot = jax.lax.fori_loop(0, iters, body, (c2v0, ch))
+        tot = [tot[..., j, :] for j in range(nb)]
+    else:
+        def body(_, c2v):
+            tot = totals(c2v)
+            new = [None] * len(edges)
+            for r in range(mb):
+                # Check alignment: v2c for each edge of the row.
+                ms = [
+                    _rot(tot[edges[e][1]] - c2v[e], edges[e][2], z)
+                    for e in e_by_row[r]
+                ]
+                for v, e in zip(_row_update(ms, beta), e_by_row[r]):
+                    new[e] = _rot(v, -edges[e][2], z)  # back to var align
+            return jnp.stack(new)
+
+        tot = totals(jax.lax.fori_loop(0, iters, body, c2v0))
+    hard = [(tot[j] < 0).astype(jnp.int8) for j in range(nb)]
     return jnp.concatenate(hard, axis=-1)

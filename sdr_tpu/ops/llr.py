@@ -7,8 +7,7 @@ the 2-D max-log metric separates exactly into two independent PAM
 problems (I bits depend only on Re, Q bits only on Im), so the
 per-symbol cost is O(2*L) instead of O(M=L^2) — this is the per-
 subcarrier inner loop the north star names, and it vectorizes directly
-onto the 8x128 VPU lanes (the fused Pallas receive chain in
-sdr_tpu/kernels/demod_pallas.py runs the same metric in VMEM).
+over every subcarrier of the batch.
 
 Definition (natural log, noise ~ CN(0, noise_var) per symbol):
 
@@ -108,8 +107,7 @@ def llr_exact(points: jnp.ndarray, mod: Modulation, noise_var) -> jnp.ndarray:
     Log-sum-exp over each bit's level set instead of the max-log min.
     Costs ~2 transcendentals per level; use when LLR fidelity to the
     true posterior matters (e.g. feeding an iterative decoder). The
-    max-log version is the hot-path default (and the Pallas kernels'
-    metric); both agree as noise_var → 0 (tested).
+    max-log version is the hot-path default; both agree as noise_var → 0 (tested).
     """
     nv = jnp.broadcast_to(jnp.asarray(noise_var, jnp.float32), points.shape)
     if mod is Modulation.BPSK:

@@ -2,18 +2,18 @@
 
 The reference is strictly SISO (one `ofdm::tx` stream into one
 `ofdm::rx`, /root/reference/lib/inc/ofdm.hpp:13-54); multi-antenna
-operation is new capability in the TPU framework. Everything here is a
+operation is new capability in this framework. Everything here is a
 pure batched array program over the post-/pre-FFT OFDM grids the rest
 of the framework already uses:
 
 - antenna axes are ordinary leading array axes (vmap/shard-map
   friendly — a channel-batched MIMO link is one fused XLA program);
 - per-subcarrier detection is einsum over tiny (n_rx, n_tx) matrices,
-  batched over (symbols, subcarriers) — XLA maps the batch onto
-  VPU lanes; no loops, no dynamic shapes;
+  batched over (symbols, subcarriers) — XLA vectorizes over the
+  batch; no loops, no dynamic shapes;
 - the spatial-mux MMSE filter needs one small Hermitian inverse per
   subcarrier: n_tx = 2 uses the closed-form 2x2 inverse (pure
-  elementwise VPU arithmetic), larger arrays fall back to
+  elementwise arithmetic), larger arrays fall back to
   jnp.linalg.inv on the (..., n_tx, n_tx) batch.
 
 Power convention: total transmitted energy per subcarrier per symbol
@@ -38,6 +38,10 @@ import jax.numpy as jnp
 
 from sdr_tpu.core.config import Modulation
 from sdr_tpu.ops.modulation import _tables  # shared static tables
+
+# Detection is small complex products (2x2 to 8x8 per subcarrier); full
+# f32 keeps a GPU from running them in TF32.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _abs2(x: jnp.ndarray) -> jnp.ndarray:
@@ -140,7 +144,7 @@ def mux_encode(x: jnp.ndarray) -> jnp.ndarray:
 def _inv_hermitian(m: jnp.ndarray) -> jnp.ndarray:
     """Batched inverse of small Hermitian positive-definite matrices.
 
-    m: (..., k, k) complex. k = 1, 2 use closed forms (elementwise VPU
+    m: (..., k, k) complex. k = 1, 2 use closed forms (elementwise
     arithmetic — no linalg lowering); larger k uses jnp.linalg.inv.
     """
     k = m.shape[-1]
@@ -170,14 +174,14 @@ def _mux_detect(y: jnp.ndarray, h: jnp.ndarray, noise_var, zf: bool):
     a = (h * jnp.float32(n_tx ** -0.5)).astype(jnp.complex64)
     # Rearrange to (..., N', n_rx, n_tx) so matrices batch per subcarrier.
     am = jnp.moveaxis(a, -1, -3)
-    gram = jnp.einsum("...rt,...rs->...ts", jnp.conj(am), am)
+    gram = jnp.einsum("...rt,...rs->...ts", jnp.conj(am), am, precision=_HI)
     eye = jnp.eye(n_tx, dtype=gram.dtype)
     reg = jnp.complex64(1e-12) if zf else (nv.astype(jnp.complex64))
     w = _inv_hermitian(gram + reg * eye)  # (..., N', n_tx, n_tx)
     # z = A^H y per subcarrier: y is (..., n_rx, S, N) → (..., N, S, n_rx)
     ym = jnp.swapaxes(jnp.moveaxis(y, -3, -1), -3, -2)
-    z = jnp.einsum("...rt,...sr->...st", jnp.conj(am), ym)  # (..., N', S, n_tx)
-    xb = jnp.einsum("...ts,...is->...it", w, z)  # biased estimates (..., N', S, n_tx)
+    z = jnp.einsum("...rt,...sr->...st", jnp.conj(am), ym, precision=_HI)  # (..., N', S, n_tx)
+    xb = jnp.einsum("...ts,...is->...it", w, z, precision=_HI)  # biased estimates (..., N', S, n_tx)
     wkk = jnp.real(jnp.einsum("...tt->...t", w))  # (..., N', n_tx)
     if zf:
         # ZF fully inverts: unbiased already; eff_var_k = nv * [(A^H A)^-1]_kk.
@@ -232,7 +236,7 @@ def mux_detect_sic(y: jnp.ndarray, h: jnp.ndarray, noise_var, mod: Modulation):
     64-QAM = 16.7M candidates). Error propagation through wrong slices
     is real and simulated — nothing genie-aided.
 
-    TPU mapping: n_tx is static so the SIC loop fully unrolls; the
+    Array mapping: n_tx is static so the SIC loop fully unrolls; the
     per-subcarrier ordering is data-dependent but expressed as argmax +
     one-hot masking over the static stream axis — no gather/scatter
     with dynamic shapes, every step is batched einsums + a masked
@@ -263,7 +267,9 @@ def mux_detect_sic(y: jnp.ndarray, h: jnp.ndarray, noise_var, mod: Modulation):
     eye = jnp.eye(n_tx, dtype=jnp.complex64)
     for _ in range(n_tx):
         a_act = am * active[..., None, :]
-        gram = jnp.einsum("...rt,...rs->...ts", jnp.conj(a_act), a_act)
+        gram = jnp.einsum(
+            "...rt,...rs->...ts", jnp.conj(a_act), a_act, precision=_HI
+        )
         # Inactive streams get a unit diagonal so the inverse exists;
         # their rows/cols are masked out of the selection below.
         pad = jnp.einsum(
@@ -275,8 +281,10 @@ def mux_detect_sic(y: jnp.ndarray, h: jnp.ndarray, noise_var, mod: Modulation):
         sinr = jnp.where(active > 0.5, sinr, -jnp.inf)
         pick = jnp.argmax(sinr, axis=-1)  # (..., N')
         onehot = jax.nn.one_hot(pick, n_tx, dtype=jnp.float32)
-        z = jnp.einsum("...rt,...sr->...st", jnp.conj(a_act), resid)
-        xb = jnp.einsum("...ts,...is->...it", w, z)  # (..., N', S, n_tx)
+        z = jnp.einsum(
+            "...rt,...sr->...st", jnp.conj(a_act), resid, precision=_HI
+        )
+        xb = jnp.einsum("...ts,...is->...it", w, z, precision=_HI)  # (..., N', S, n_tx)
         wkk_p = jnp.sum(wkk * onehot, axis=-1)  # (..., N')
         bias = jnp.maximum(1.0 - nv * wkk_p, 1e-12)[..., None]
         x_p = jnp.sum(xb * onehot[..., None, :], axis=-1) / bias  # (..., N, S)
@@ -341,12 +349,12 @@ def mux_detect_ml(y: jnp.ndarray, h: jnp.ndarray, noise_var, mod: Modulation):
     n_rx - n_tx + 1 — the curves cross decades apart at high SNR
     (docs/figures/ber_mux.png).
 
-    TPU mapping: the candidate metric splits as
+    Array mapping: the candidate metric splits as
     q_c - 2 Re(z^H s_c) with z = A^H y per resource element and
     q_c = s_c^H G s_c per subcarrier (G = A^H A) — the ||y||^2 term is
     candidate-independent and dropped. Both terms are batched einsums
     with the (C, n_tx) candidate table as one operand: the cross term
-    is a (S*N', C) x (C-contraction over n_tx) matmul the MXU/VPU
+    is a (S*N', C) x (C-contraction over n_tx) matmul XLA
     vectorizes over ALL resource elements at once; no per-candidate
     loop, no dynamic shapes.
 
@@ -363,12 +371,16 @@ def mux_detect_ml(y: jnp.ndarray, h: jnp.ndarray, noise_var, mod: Modulation):
     nv = jnp.asarray(noise_var, jnp.float32)
     a = (h * jnp.float32(n_tx ** -0.5)).astype(jnp.complex64)
     am = jnp.moveaxis(a, -1, -3)  # (..., N', n_rx, n_tx)
-    gram = jnp.einsum("...rt,...rs->...ts", jnp.conj(am), am)
+    gram = jnp.einsum("...rt,...rs->...ts", jnp.conj(am), am, precision=_HI)
     # q_c = s_c^H G s_c, real by hermiticity: (..., N', C)
-    q = jnp.real(jnp.einsum("ct,...tu,cu->...c", jnp.conj(cand), gram, cand))
+    q = jnp.real(jnp.einsum(
+        "ct,...tu,cu->...c", jnp.conj(cand), gram, cand, precision=_HI
+    ))
     ym = jnp.swapaxes(jnp.moveaxis(y, -3, -1), -3, -2)  # (..., N', S, n_rx)
-    z = jnp.einsum("...rt,...sr->...st", jnp.conj(am), ym)  # (..., N', S, n_tx)
-    cross = jnp.real(jnp.einsum("...st,ct->...sc", z, jnp.conj(cand)))
+    z = jnp.einsum("...rt,...sr->...st", jnp.conj(am), ym, precision=_HI)  # (..., N', S, n_tx)
+    cross = jnp.real(jnp.einsum(
+        "...st,ct->...sc", z, jnp.conj(cand), precision=_HI
+    ))
     metric = q[..., None, :] - 2.0 * cross  # (..., N', S, C)
     inf = jnp.float32(np.inf)
     llrs = []

@@ -17,7 +17,7 @@ solid-state amplifiers; TWTA-style phase distortion is out of scope).
 Operating point is set by the INPUT BACKOFF in dB relative to the
 nominal mean input power: IBO = 10·log10(A_sat² / P_in).
 
-Everything is elementwise over the complex waveform — pure VPU work
+Everything is elementwise over the complex waveform — pure elementwise work
 that XLA fuses into the surrounding TX chain; batching/sharding are
 inherited from the callers.
 

@@ -20,6 +20,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+# DFT-subspace projections are f32 estimates, not tensor-core work: full
+# f32 keeps a GPU from running them in TF32.
+_HI = jax.lax.Precision.HIGHEST
+
 # Unit-power pilot point (45° QPSK corner) — known at both ends.
 PILOT_VALUE = complex(2 ** -0.5, 2 ** -0.5)
 
@@ -55,7 +59,10 @@ def estimate_block_pilots(y_pil: jnp.ndarray, n_taps: int = 0) -> jnp.ndarray:
     zc = jnp.asarray(zadoff_chu(y_pil.shape[-1]))
     h = jnp.mean(y_pil * jnp.conj(zc), axis=-2)  # |zc|=1: conj == divide
     if n_taps:
-        h = h @ jnp.asarray(_dft_projection_full(h.shape[-1], n_taps))
+        h = jnp.matmul(
+            h, jnp.asarray(_dft_projection_full(h.shape[-1], n_taps)),
+            precision=_HI,
+        )
     return h
 
 
@@ -220,8 +227,9 @@ def estimate_block_pilots_tracked(
     rot = jnp.exp(jax.lax.complex(jnp.zeros_like(phi), -phi))[..., None]
     shape = jnp.mean(hb * rot, axis=-2)  # (..., n_fft)
     if n_taps:
-        shape = shape @ jnp.asarray(
-            _dft_projection_full(shape.shape[-1], n_taps)
+        shape = jnp.matmul(
+            shape, jnp.asarray(_dft_projection_full(shape.shape[-1], n_taps)),
+            precision=_HI,
         )
     offs = jnp.arange(1, p, dtype=jnp.float32)  # (p-1,)
     ph = phi[..., :, None] + slope[..., :, None] * offs  # (..., B, p-1)
@@ -282,7 +290,7 @@ def _dft_projection(n_fft: int, spacing: int, n_taps: int):
     n_taps-tap impulse-response subspace, evaluated on the full grid.
 
     ĥ_full = h_pilots @ W, W = (IDFT_{n_pil} rows < n_taps) @ DFT rows.
-    One complex matmul — the MXU-native form of transform-domain
+    One complex matmul — the dense form of transform-domain
     channel-estimate denoising.
     """
     pil = np.asarray(pilot_indices(n_fft, spacing), np.float64)
@@ -329,7 +337,10 @@ def estimate_dft_comb(
     else:
         y_p = jnp.mean(y[..., pidx], axis=-2, keepdims=True)
     h_p = y_p / jnp.asarray(PILOT_VALUE, y.dtype)
-    return h_p @ jnp.asarray(_dft_projection(n_fft, spacing, n_taps))
+    return jnp.matmul(
+        h_p, jnp.asarray(_dft_projection(n_fft, spacing, n_taps)),
+        precision=_HI,
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -361,7 +372,7 @@ def estimate_mimo_preamble(
     SISO comb (estimate_ls_comb) cannot provide. With ``n_taps > 0``
     each (r, t) estimate is additionally projected onto the CP-bounded
     impulse-response subspace (one (n_fft, n_fft) matmul per pair,
-    batched on the MXU) — noise outside the subspace is discarded,
+    batched) — noise outside the subspace is discarded,
     cutting estimation error by ~n_taps/n_fft.
 
     y_pre: (..., n_rx, n_tx, n_fft) — the first n_tx received OFDM
@@ -370,7 +381,10 @@ def estimate_mimo_preamble(
     """
     h = y_pre / jnp.asarray(PILOT_VALUE, y_pre.dtype)
     if n_taps > 0:
-        h = h @ jnp.asarray(_dft_projection_full(y_pre.shape[-1], n_taps))
+        h = jnp.matmul(
+            h, jnp.asarray(_dft_projection_full(y_pre.shape[-1], n_taps)),
+            precision=_HI,
+        )
     return h
 
 

@@ -8,7 +8,7 @@ north-star capability. As soft-decision FEC it replaces the
 reference's hard-decision nearest-point scan
 (/root/reference/lib/inc/modulation.hpp:50-67).
 
-TPU shape discipline:
+Shape discipline:
 - the ENCODER is the n-stage butterfly x = u·F^{⊗n} (F = [[1,0],[1,1]],
   natural bit order) — log2(N) vectorized XOR stages, batched over
   codewords; no bit-reversal anywhere (both ends use the same natural-
@@ -36,7 +36,7 @@ TPU shape discipline:
 SC/SCL are inherently bit-serial (the decision for bit i feeds the
 partial sums bit i+1 needs) — the scan IS the algorithm, not a
 compromise; the codeword and list axes provide the data parallelism
-(vmap/batch), which is where the TPU lanes go. This decoder is the
+(vmap/batch), which is where the device's parallelism goes. This decoder is the
 capability/BER-parity path, not a throughput kernel.
 
 Constructions:
@@ -485,26 +485,20 @@ def _rate0_penalty(alpha: jnp.ndarray) -> jnp.ndarray:
 
 
 # Survivor selection is represented as a ONE-HOT matrix S (Lw, Lw)
-# f32 — new_path l = old_path argmax(S[l]) — applied by small matmuls
-# instead of index gathers: TPU gathers with per-path indices run at
-# scalar-core rates (measured: the gather formulation spent 42 of
-# 49 ms in fork-adjacent gathers at (256,128)/L=8/B=1024; the one-hot
-# rewrite runs the same decode in 11 ms). HIGHEST precision keeps the
-# selections EXACT for f32 payloads (TPU default matmul precision is
-# single-pass bf16, which would truncate path metrics and integer
-# position tables > 256).
+# f32 — new_path l = old_path argmax(S[l]) — applied as small dense
+# products instead of per-path index gathers, so every selection is a
+# batched elementwise/reduce over (Lw, Lw, W) with no data-dependent
+# addressing.
 
 
 def _selmm(S, arr, exact: bool = True):
     """arr' = S @ arr (S one-hot). ``exact`` payloads carry f32 VALUES
-    (path metrics, LLR planes, position tables > 256), which the TPU's
-    default single-bf16-pass matmul would truncate — they are selected
-    by an explicit broadcast-multiply-reduce instead: f32-exact on the
-    VPU, and ~3× faster than a HIGHEST-precision MXU pass at these
-    (L, L)·(L, W) shapes (measured: HIGHEST selections cost 32 ms of
-    the 77 ms decode at (256,128)/L=8/B=8192). 0/1 payloads
-    (decisions, flips, selection composition) are bf16-exact and ride
-    the default matmul pass."""
+    (path metrics, LLR planes, position tables > 256), which a reduced-
+    precision matmul (TF32 or bf16, an accelerator's default for f32
+    operands) would truncate — they are selected by an explicit
+    broadcast-multiply-reduce instead, f32-exact on any backend. 0/1
+    payloads (decisions, flips, selection composition) are exact in
+    TF32 and bf16 and ride the default matmul precision."""
     if exact:
         return jnp.sum(S[:, :, None] * arr[None, :, :], axis=1)
     return jnp.matmul(S, arr)
@@ -602,11 +596,9 @@ def polar_decode_scl_fast(
 
     Everything is STATIC: no lax.scan, no lax.switch, no dynamic
     slices — the tree is known at trace time, so XLA sees a straight
-    dataflow of small static-shape ops whose live state (a few
-    (L, W) planes per recursion level) stays on-chip instead of a
-    (L, n+1, N)-plane carry crossing HBM once per bit — the round-3
-    bottleneck (docs/PERF.md: 0.39 Mb/s, ~36 KB of scan carry per
-    sequential bit). Survivor reordering composes a permutation up the
+    dataflow of small static-shape ops whose live state is a few
+    (L, W) planes per recursion level, instead of the scan decoder's
+    (L, n+1, N)-plane carry crossing device memory once per bit. Survivor reordering composes a permutation up the
     recursion; each level gathers only its own pending arrays.
     """
     N, k = code.block_len, code.k
@@ -657,10 +649,9 @@ def polar_decode_scl_fast(
         info = u[:, info_idx_j]  # (Lw, k)
         if code.crc_len:
             _, chk = crc_matrices(code.payload_len, code.crc)
-            # f32 matmul (exact: counts ≤ k < 2^24) — int32 matmuls
-            # cannot use the MXU on TPU.
-            # 0/1 operands are bf16-exact; accumulation is f32 — the
-            # default MXU pass computes the syndrome exactly.
+            # f32 matmul of 0/1 operands with f32 accumulation: exact
+            # at the default precision (0/1 is exact in TF32 and bf16,
+            # counts ≤ k < 2^24).
             syn = jnp.mod(
                 jnp.matmul(
                     info.astype(jnp.float32), jnp.asarray(chk, jnp.float32)

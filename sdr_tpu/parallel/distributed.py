@@ -3,15 +3,15 @@
 The reference is strictly single-process (SURVEY.md §2: zero IPC; its
 only "backend" is a Qt event loop). Scaling past one host in JAX is
 ``jax.distributed.initialize`` + building the ("time", "channel") mesh
-over ``jax.devices()`` (which then spans all hosts): XLA routes
-collectives over ICI within a slice and DCN across hosts — no NCCL/MPI
-equivalent exists to write.
+over ``jax.devices()`` (which then spans all hosts): XLA hands the
+collectives to NCCL, over NVLink between the GPUs of one host and the
+network between hosts — no collective code exists to write here.
 
-Usage on each host of a pod slice (or under a scheduler that sets the
-standard env vars, in which case arguments may be omitted):
+Usage on each host (pass the coordinator, process count and id; only a
+scheduler that sets the standard environment lets them be omitted):
 
     from sdr_tpu.parallel import init_multihost, make_link_mesh
-    init_multihost()                      # or (coordinator, n, id)
+    init_multihost("localhost:12345", n_processes, process_id)
     mesh = make_link_mesh(n_time=hosts, n_channel=devs_per_host)
 
 Every sharded entry point in sdr_tpu.parallel is a plain shard_map

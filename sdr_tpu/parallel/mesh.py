@@ -9,8 +9,10 @@ axes
   multipath seams);
 - ``"channel"`` — data parallelism: independent OFDM links.
 
-Collectives ride ICI within a slice and DCN across hosts when the mesh
-is built over a multi-host pod slice (jax.distributed). BER reduction
+Collectives are NCCL calls: over NVLink between the GPUs of one host,
+over the network between hosts when the mesh spans several processes
+(jax.distributed). Every GPU of a host reaches every other at the same
+rate, so the mesh shape follows the algorithm alone. BER reduction
 is one psum; the halo is one ppermute of L-1 complex samples per block
 boundary — O(cp), off the critical path.
 """

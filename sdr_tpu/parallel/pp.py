@@ -1,11 +1,11 @@
 """Pipeline parallelism: the link chain staged across mesh devices.
 
 The last unbuilt row of SURVEY.md §2's parallelism checklist. The RX
-chain normally fuses into one kernel per shard (the right single-chip
-call — docs/PARITY.md), but when TX and RX are *heterogeneous* work —
-e.g. TX+channel simulation feeding a demod farm — staging them across
-devices is real pipeline parallelism, and this module expresses it
-TPU-natively: ``shard_map`` over a 2-row stage axis, ``lax.scan`` over
+chain normally runs whole on each shard (the right single-device call
+— docs/PARITY.md), but when TX and RX are *heterogeneous* work — e.g.
+TX+channel simulation feeding a demod farm — staging them across
+devices is real pipeline parallelism, and this module expresses it as
+``shard_map`` over a 2-row stage axis, ``lax.scan`` over
 microbatch ticks, one ``ppermute`` hop per tick (GPipe-style
 fill/drain schedule).
 
@@ -51,11 +51,16 @@ from sdr_tpu.link.fast import rx_count_core, tx_channel_core
 N_STAGES = 2  # TX+channel | RX+count
 
 
+def _vary(x, axes):
+    """Mark constant zeros as varying over ``axes``, so both branches of
+    a stage ``lax.cond`` (and the scan carry) have one sharding type."""
+    return lax.pcast(x, axes, to="varying")
+
+
 def make_pipelined_fast_fn(
     cfg: LinkConfig,
     mesh: Mesh,
     n_micro: int = 2,
-    backend: str = "auto",
 ):
     """Jitted 2-stage pipelined fast link over ``mesh``.
 
@@ -97,12 +102,12 @@ def make_pipelined_fast_fn(
             # never consumed — the drain tick only reads the buffer).
             def produce(_):
                 m = jnp.clip(t, 0, n_micro - 1)
-                return tx_channel_core(cfg, key, mb_ids(m), backend)
+                return tx_channel_core(cfg, key, mb_ids(m))
 
             def idle(_):
-                return jnp.zeros((mb, S, sym_len), jnp.float32), jnp.zeros(
-                    (mb, S, sym_len), jnp.float32
-                )
+                z = _vary(jnp.zeros((mb, S, sym_len), jnp.float32),
+                          ("channel",))
+                return z, z
 
             out_re, out_im = lax.cond(stage == 0, produce, idle, None)
 
@@ -111,12 +116,12 @@ def make_pipelined_fast_fn(
             def consume(_):
                 m = jnp.clip(t - 1, 0, n_micro - 1)
                 errors, _ = rx_count_core(
-                    cfg, key, mb_ids(m), buf_re, buf_im, backend
+                    cfg, key, mb_ids(m), buf_re, buf_im
                 )
                 return errors
 
             def skip(_):
-                return jnp.zeros((mb,), jnp.int32)
+                return _vary(jnp.zeros((mb,), jnp.int32), ("time", "channel"))
 
             e = lax.cond((stage == 1) & (t >= 1), consume, skip, None)
 
@@ -126,26 +131,26 @@ def make_pipelined_fast_fn(
             nxt_im = lax.ppermute(out_im, "time", [(0, 1)])
             return (nxt_re, nxt_im), e
 
-        init = (
-            jnp.zeros((mb, S, sym_len), jnp.float32),
-            jnp.zeros((mb, S, sym_len), jnp.float32),
-        )
+        z = _vary(jnp.zeros((mb, S, sym_len), jnp.float32),
+                  ("time", "channel"))
+        init = (z, z)
         _, es = lax.scan(tick, init, jnp.arange(n_micro + 1))
-        # Ticks 1..M consumed microbatches 0..M-1 in order; stage-0
-        # rows are all zeros, so the psum leaves stage 1's counts.
-        errors = lax.psum(es[1:].reshape(local), "time")
-        counted = jnp.full(
-            (local,), S * cfg.bits_per_ofdm_symbol, jnp.int32
-        )
-        return errors, counted
+        # Ticks 1..M consumed microbatches 0..M-1 in order (stage-0
+        # rows are all zeros); one row per stage leaves the mesh.
+        return es[1:].reshape(1, local)
 
     f = shard_map(
         local_fn,
         mesh=mesh,
         in_specs=P(),
-        out_specs=(P("channel"), P("channel")),
-        # Same rationale as make_sharded_fast_fn: the Pallas kernels
-        # are mesh-agnostic; skip the varying-mesh-axis check.
-        check_vma=False,
+        out_specs=P("time", "channel"),
     )
-    return jax.jit(f)
+
+    def run(key):
+        errors = f(key)[N_STAGES - 1]  # the RX stage's counts
+        counted = jnp.full(
+            (cfg.n_channels,), S * cfg.bits_per_ofdm_symbol, jnp.int32
+        )
+        return errors, counted
+
+    return jax.jit(run)

@@ -62,24 +62,13 @@ def make_sharded_simulate_fn(cfg: LinkConfig, mesh: Mesh):
     return jax.jit(f)
 
 
-def make_sharded_fast_fn(cfg: LinkConfig, mesh: Mesh, backend: str = "auto",
-                         layout: str = "auto"):
-    """Channel-batch data parallelism for the FUSED-KERNEL fast link.
+def make_sharded_fast_fn(cfg: LinkConfig, mesh: Mesh):
+    """Channel-batch data parallelism for the fast link.
 
-    Each device runs link.fast.fast_core — the throughput path whose
-    hot loops are the Pallas TX and demod kernels — on its channel
-    shard. Because fast_core keys every draw by global channel id, the
-    result equals the unsharded ``fast_simulate`` bit-exactly for any
-    channel-axis layout (tests/test_parallel.py). This is the
-    composition BASELINE configs 4/5 describe: fused kernels inside
-    the mesh program, not just the jnp oracle.
-
-    ``layout="auto"`` resolves ONCE here against the per-device shard
-    size (so every shard — and the bit-exactness comparison — uses the
-    same demod layout; a per-shard resolution could diverge from the
-    unsharded oracle's). "cl" runs the channels-last pipelined demod
-    inside the mesh program (the headline kernel under DP —
-    MULTICHIP row "fast path CL").
+    Each device runs link.fast.fast_core on its channel shard. Because
+    fast_core keys every draw by global channel id, the result equals
+    the unsharded ``fast_simulate`` bit-exactly for any channel-axis
+    layout and any shard size (tests/test_parallel.py).
     """
     if cfg.pilot_spacing:
         raise NotImplementedError(
@@ -90,6 +79,8 @@ def make_sharded_fast_fn(cfg: LinkConfig, mesh: Mesh, backend: str = "auto",
             "the fast path is SISO; sharded MIMO links run through "
             "make_sharded_simulate_fn (link.pipeline)"
         )
+    from sdr_tpu.link.fast import fast_core
+
     # The fast link has no time-axis structure, so EVERY device is a
     # DP worker: channels shard over the flattened ("time", "channel")
     # axes rather than replicating the chain across "time" rows.
@@ -101,27 +92,17 @@ def make_sharded_fast_fn(cfg: LinkConfig, mesh: Mesh, backend: str = "auto",
         )
     local = cfg.n_channels // n_shards
     cdev = mesh.shape["channel"]
-    if layout == "auto":
-        from sdr_tpu.link.fast import select_layout
-
-        layout = select_layout(cfg, local, jax.default_backend())
 
     def local_fn(key):
         me = lax.axis_index("time") * cdev + lax.axis_index("channel")
         ch_ids = me * local + jnp.arange(local)
-        from sdr_tpu.link.fast import fast_core
-
-        return fast_core(cfg, key, ch_ids, backend, layout=layout)
+        return fast_core(cfg, key, ch_ids)
 
     f = shard_map(
         local_fn,
         mesh=mesh,
         in_specs=P(),
         out_specs=(P(("time", "channel")), P(("time", "channel"))),
-        # pallas_call emits ShapeDtypeStructs without varying-mesh-axis
-        # annotations; disable the vma check rather than threading mesh
-        # names into the (mesh-agnostic) kernels.
-        check_vma=False,
     )
     return jax.jit(f)
 
@@ -218,19 +199,14 @@ def make_sharded_stream_fn(
 
 
 def make_sharded_mc_fn(cfg: LinkConfig, mesh: Mesh, iters: int = 1):
-    """Channel-batch data parallelism for the Monte-Carlo kernel.
+    """Channel-batch data parallelism for the Monte-Carlo driver.
 
-    Each device runs the fully-fused MC kernel (kernels/mc_pallas.py)
-    on its channel shard with a device-distinct seed offset; the only
-    communication is the concatenated per-channel count output. Unlike
-    the fast/stream paths the result is NOT layout-invariant — the MC
-    stream is keyed by (seed, device, block), so changing the mesh
-    changes the draws (statistics, not results, are the contract;
-    the inject mode IS layout-invariant and pins the composition in
-    tests/test_mc.py).
+    Each device runs link.mc.mc_simulate over its slice of GLOBAL
+    channel ids; every pass keys its draws by (pass key, role, channel
+    id), so the result equals the unsharded ``mc_simulate`` bit-exactly
+    for any channel-axis layout. The only communication is the
+    concatenated per-channel count output. Returns fn(seed).
     """
-    import dataclasses
-
     from sdr_tpu.link.mc import mc_simulate
 
     n_shards = mesh.shape["channel"]
@@ -239,57 +215,17 @@ def make_sharded_mc_fn(cfg: LinkConfig, mesh: Mesh, iters: int = 1):
             f"n_channels={cfg.n_channels} not divisible by "
             f"channel-axis size {n_shards}"
         )
-    local_cfg = dataclasses.replace(
-        cfg, n_channels=cfg.n_channels // n_shards
-    )
+    local = cfg.n_channels // n_shards
 
-    def local_fn(seed, rand_inputs=None):
-        me = lax.axis_index("channel")
-        local_seed = seed + me * jnp.int32(0x5BD1E995 & 0x7FFFFFFF)
-        return mc_simulate(
-            local_cfg, local_seed, iters=iters, rand_inputs=rand_inputs
-        )
+    def local_fn(seed):
+        ch_ids = lax.axis_index("channel") * local + jnp.arange(local)
+        return mc_simulate(cfg, seed, iters=iters, ch_ids=ch_ids)
 
     f = shard_map(
         local_fn,
         mesh=mesh,
         in_specs=P(),
         out_specs=(P("channel"), P("channel")),
-        check_vma=False,  # pallas_call, as in make_sharded_fast_fn
-    )
-    return jax.jit(f)
-
-
-def make_sharded_mc_inject_fn(cfg: LinkConfig, mesh: Mesh):
-    """Inject-mode twin of ``make_sharded_mc_fn`` for CPU-mesh tests:
-    the randomness arrives as sharded operands, so the sharded result
-    is bit-exact vs the unsharded inject run for any layout."""
-    import dataclasses
-
-    from sdr_tpu.link.mc import mc_simulate
-
-    n_shards = mesh.shape["channel"]
-    if cfg.n_channels % n_shards != 0:
-        raise ValueError(
-            f"n_channels={cfg.n_channels} not divisible by "
-            f"channel-axis size {n_shards}"
-        )
-    local_cfg = dataclasses.replace(
-        cfg, n_channels=cfg.n_channels // n_shards
-    )
-
-    def local_fn(idx, nr, ni, hr, hi):
-        return mc_simulate(
-            local_cfg, 0, iters=1, rand_inputs=(idx, nr, ni, hr, hi)
-        )
-
-    spec = P("channel")
-    f = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec, spec),
-        out_specs=(spec, spec),
-        check_vma=False,  # pallas_call, as in make_sharded_fast_fn
     )
     return jax.jit(f)
 
@@ -376,18 +312,14 @@ def make_sharded_coded_fast_fn(
     rate: str = "1/2",
     ldpc_iters: int = 25,
     schedule: str = "flooding",
-    seam: str = "auto",
 ):
     """Channel-batch DP for the CODED FAST engine (link.fast_coded —
-    the batched LDPC chain with the fused demod→decoder seam).
+    the batched LDPC chain).
 
     Every draw in the engine is keyed by global channel id (payload,
-    fading AND the channel kernel's noise), so each device running its
-    own consecutive id slice is bit-exact vs the unsharded
-    ``ldpc_fast_simulate`` — the round-5 coded analog of
-    ``make_sharded_fast_fn``. The seam resolves once here against the
-    per-shard batch so all shards (and the oracle comparison) take the
-    same path.
+    fading and noise), so each device running its own consecutive id
+    slice is bit-exact vs the unsharded ``ldpc_fast_simulate`` — the
+    coded analog of ``make_sharded_fast_fn``.
     """
     from sdr_tpu.link.fast_coded import ldpc_fast_simulate
 
@@ -399,32 +331,13 @@ def make_sharded_coded_fast_fn(
         )
     local = cfg.n_channels // n_shards
     cdev = mesh.shape["channel"]
-    if seam == "auto":
-        from sdr_tpu.kernels.demod_cl_pallas import supported_cl
-        from sdr_tpu.link.coded import (
-            ldpc_code_for,
-            ldpc_codewords_per_channel,
-        )
-
-        n_cw = ldpc_codewords_per_channel(cfg, ldpc_code_for(rate))
-        seam = (
-            "fused"
-            if (
-                jax.default_backend() == "tpu"
-                and supported_cl(
-                    cfg.ofdm.n_fft, local, cfg.n_symbols, cfg.modulation
-                )
-                and local * n_cw % 128 == 0
-            )
-            else "staged"
-        )
 
     def local_fn(key):
         me = lax.axis_index("time") * cdev + lax.axis_index("channel")
         ch_ids = me * local + jnp.arange(local)
         return ldpc_fast_simulate(
             cfg, key, rate=rate, iters=ldpc_iters, schedule=schedule,
-            seam=seam, ch_ids=ch_ids,
+            ch_ids=ch_ids,
         )
 
     f = shard_map(
@@ -432,6 +345,5 @@ def make_sharded_coded_fast_fn(
         mesh=mesh,
         in_specs=P(),
         out_specs=(P(("time", "channel")), P(("time", "channel"))),
-        check_vma=False,  # pallas_call, as in make_sharded_fast_fn
     )
     return jax.jit(f)

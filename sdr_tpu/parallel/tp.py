@@ -1,13 +1,11 @@
 """Tensor parallelism: one OFDM transform split across mesh devices.
 
-Rounds 1's de-scope note (docs/PARITY.md) stands for capacity — a
-4096-point transform fits trivially in one chip's VMEM — but the
-checklist row deserves a real implementation: this module demodulates
-with the SUBCARRIER axis of a single FFT sharded over a mesh axis,
-the distributed-FFT "transpose algorithm" expressed TPU-natively.
+A 4096-point transform fits one device with room to spare, so this is
+not a capacity path; it demodulates with the SUBCARRIER axis of a
+single FFT sharded over a mesh axis — the distributed-FFT "transpose
+algorithm".
 
-Factor N = N1·N2 (Cooley–Tukey, same decomposition as the wideband
-Pallas kernels, kernels/fourstep_pallas.py):
+Factor N = N1·N2 (Cooley–Tukey four-step decomposition):
 
     x[n1·N2 + n2]                                   (n1 chunk, n2 lane)
     G[k1, n2] = FFT_{N1} over n1                    — stage 1
@@ -20,8 +18,7 @@ from lane-split to CHUNK-split (the distributed transpose — the only
 communication in the whole transform), after which stage 2 and the
 fused equalize + max-log LLR run locally on each device's n1/D digit
 block. Output LLRs therefore leave subcarrier-sharded (digit-major),
-and one XLA transpose at the edge restores public order — exactly the
-permutation-at-the-edges design of the single-chip four-step kernel.
+and one XLA transpose at the edge restores public order.
 
 Comm inventory per frame: ONE all_to_all of the (B, S, N) working set
 over the TP axis; no other collective. Compare DP/SP in
@@ -47,103 +44,6 @@ from jax import shard_map
 from sdr_tpu.core.config import Modulation
 from sdr_tpu.ops.equalize import equalize_mmse
 from sdr_tpu.ops.llr import llr_maxlog
-
-
-def _pick_tp_tile(
-    batch: int, n_syms: int, n1d: int, n2: int, bps: int = 10
-) -> int:
-    """Batch tile for the local fused kernel: rows ≤ 512 (the proven
-    MXU shape), rows ≡ 0 (mod 8), double-buffered operand + LLR-plane
-    bytes within a ~4 MB estimate (the LLR output block is bps× the
-    input block — the binding term at 16-QAM+)."""
-    best = 0
-    for tb in range(1, batch + 1):
-        rows = tb * n_syms * n1d
-        if batch % tb or rows % 8 or rows > 512:
-            continue
-        if rows * n2 * (2 + 2 * bps) * 4 <= (4 << 20):
-            best = tb
-    return best
-
-
-def _stage2_llr_pallas(t_r, t_i, hr4, hi4, nv, mod: Modulation, interpret):
-    """Per-device fused stage-2 + equalize + max-log LLR.
-
-    The TP local compute is the four-step's phase B: ONE (rows, N2)
-    Gauss DFT matmul on the MXU followed by the fused equalize/LLR
-    tail — the same kernel family as the single-chip throughput path,
-    now running INSIDE the shard_map on each device's digit block.
-    noise_var is a RUNTIME argument (SMEM scalar), so one compiled
-    program serves a whole Eb/N0 sweep. t_r/t_i: (B, S, n1d, n2)
-    twiddled stage-1 output; hr4/hi4: (B, h_syms, n1d, n2) digit-major
-    channel. Returns (B, S, n1d, n2·bps) subcarrier-major LLRs.
-    """
-    from sdr_tpu.kernels import _matmul
-    from sdr_tpu.kernels.demod_pallas import _dft_mats, equalize_llr_bits
-
-    b, s, n1d, n2 = t_r.shape
-    h_syms = hr4.shape[1]
-    bps = mod.bits_per_symbol
-    tb = _pick_tp_tile(b, s, n1d, n2, mod.bits_per_symbol)
-    if tb == 0:
-        raise ValueError(f"no feasible TP tile for batch {b}")
-    rows = tb * s * n1d
-    mode = _matmul.mxu_mode()
-    n_w = _matmul.n_w_operands(mode)
-    w_ops = _matmul.prepare_w(*_dft_mats(n2), mode)
-
-    def kernel(tr_ref, ti_ref, hr_ref, hi_ref, nv_ref, *rest):
-        w_refs = rest[:n_w]
-        out_ref = rest[n_w]
-        xr = tr_ref[:].reshape(rows, n2)
-        xi = ti_ref[:].reshape(rows, n2)
-        yr, yi = _matmul.complex_dot(xr, xi, w_refs, mode)
-        # Broadcast the channel over the symbol axis (h_syms ∈ {1, S}).
-        hh_r = jnp.broadcast_to(hr_ref[:], (tb, s, n1d, n2))
-        hh_i = jnp.broadcast_to(hi_ref[:], (tb, s, n1d, n2))
-        hrx = hh_r.reshape(rows, n2)
-        hix = hh_i.reshape(rows, n2)
-        inv_nv = jnp.float32(1.0) / jnp.maximum(nv_ref[0], 1e-12)
-        llr_bits = equalize_llr_bits(yr, yi, hrx, hix, inv_nv, mod)
-        out_ref[:] = jnp.concatenate(llr_bits, axis=-1).reshape(
-            tb, s, n1d, n2 * bps
-        )
-
-    import jax as _jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(b // tb,),
-        in_specs=[
-            pl.BlockSpec((tb, s, n1d, n2), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tb, s, n1d, n2), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tb, h_syms, n1d, n2), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tb, h_syms, n1d, n2), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ] + [
-            pl.BlockSpec((n2, n2), lambda i: (0, 0), memory_space=pltpu.VMEM)
-            for _ in w_ops
-        ],
-        out_specs=pl.BlockSpec(
-            (tb, s, n1d, n2 * bps), lambda i: (i, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=_jax.ShapeDtypeStruct((b, s, n1d, n2 * bps), jnp.float32),
-        compiler_params=pltpu.CompilerParams(dimension_semantics=("parallel",)),
-        interpret=interpret,
-    )(t_r, t_i, hr4, hi4, jnp.atleast_1d(nv.astype(jnp.float32)), *w_ops)
-    # Bit-major lanes [j·n2 + k] → subcarrier-major [k·bps + j].
-    return (
-        out.reshape(b, s, n1d, bps, n2)
-        .transpose(0, 1, 2, 4, 3)
-        .reshape(b, s, n1d, n2 * bps)
-    )
 
 
 def tp_split(n_fft: int, n_dev: int) -> tuple[int, int]:
@@ -173,7 +73,6 @@ def digit_permute_h(h: jnp.ndarray, n1: int, n2: int) -> jnp.ndarray:
     """Natural-order (..., N) channel plane → digit-major (..., n1, n2).
 
     Digit subcarrier κ = (k1, k2) carries true subcarrier k = k1 + N1·k2
-    (same convention as kernels.fourstep_pallas.permute_h).
     """
     lead = h.shape[:-1]
     return h.reshape(lead + (n2, n1)).swapaxes(-1, -2)
@@ -195,7 +94,6 @@ def make_tp_demod_fn(
     mod: Modulation,
     mesh: Mesh,
     axis: str = "time",
-    backend: str = "auto",
     noise_var: float | None = None,
 ):
     """Build a jitted subcarrier-sharded demod chain over ``mesh[axis]``.
@@ -210,13 +108,8 @@ def make_tp_demod_fn(
     build-time ``noise_var=`` keyword still works: the returned fn then
     keeps the old 4-argument signature.
 
-    ``backend``: "pallas" runs each device's stage-2 DFT + equalize +
-    max-log LLR as the fused MXU kernel (``_stage2_llr_pallas`` — the
-    four-step phase-B kernel INSIDE the shard_map; round-4 VERDICT
-    item 5), "jnp" keeps the XLA composition, "auto" picks pallas
-    when a tile fits. Numerics match the same four-step decomposition
-    computed unsharded to f32 rounding; hard decisions are identical
-    (tests/test_tp.py).
+    Numerics match the unsharded chain to f32 rounding; hard decisions
+    are identical (tests/test_tp.py).
 
     Signature note (round-4 break, defended here): round 3's build
     signature was ``(n_fft, cp_len, mod, noise_var, mesh, ...)``; a
@@ -246,18 +139,6 @@ def make_tp_demod_fn(
         # ends up with digit block k1 ∈ [d·n1/D, (d+1)·n1/D) and FULL
         # lanes (peer-order concat restores natural n2 order).
         t = lax.all_to_all(t, axis, split_axis=2, concat_axis=3, tiled=True)
-        b, s_, n1d, _ = t.shape
-        use_pallas = backend == "pallas" or (
-            backend == "auto"
-            and _pick_tp_tile(b, s_, n1d, n2, mod.bits_per_symbol) > 0
-            and n2 % 128 == 0
-            and n2 <= 512
-        )
-        if use_pallas:
-            interpret = jax.default_backend() == "cpu"
-            return _stage2_llr_pallas(
-                jnp.real(t), jnp.imag(t), hr4, hi4, nv, mod, interpret
-            )
         y = jnp.fft.fft(t, axis=3)  # stage 2: N2-point DFT, local
         h = lax.complex(hr4, hi4)  # (B, h_syms, n1/D, n2) digit-sharded
         s, eff = equalize_mmse(y, h, nv)
@@ -276,7 +157,6 @@ def make_tp_demod_fn(
             P(),
         ),
         out_specs=P(None, None, axis, None),
-        check_vma=False,  # pallas_call inside (as in parallel/shard.py)
     )
 
     def fn(re, im, hr, hi, noise_var):

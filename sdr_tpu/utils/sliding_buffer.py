@@ -8,7 +8,7 @@ to ``data_[(cur_ + pos) % size]`` (sliding_buffer.hpp:73-76), range
 (sliding_buffer.hpp:78-88), checked ``at()`` reports
 "pos=N exceeds size=M" (sliding_buffer.hpp:59-65).
 
-Two TPU-native counterparts live here:
+Two device-side counterparts live here:
 
 - ``SlidingBuffer`` — a host-side Python ring with the reference's
   exact indexing/push/saturation semantics (validated against the nine

@@ -220,25 +220,6 @@ def test_dense_rungs_calibrate_and_extend_staircase():
     )
 
 
-def test_precision_pinning_for_dense_rungs(monkeypatch):
-    """> 64-QAM rungs pin the MXU mode to bf16x2 when a bench-mode env
-    (single-pass bf16) would otherwise leak threshold errors; ≤ 64-QAM
-    and already-safe modes are untouched."""
-    import os
-
-    from sdr_tpu.link.adapt import _pin_precision
-
-    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "default")
-    with _pin_precision(Modulation.QAM1024):
-        assert os.environ["SDR_TPU_MXU_PRECISION"] == "bf16x2"
-    assert os.environ["SDR_TPU_MXU_PRECISION"] == "default"
-    with _pin_precision(Modulation.QAM16):
-        assert os.environ["SDR_TPU_MXU_PRECISION"] == "default"
-    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "bf16x3")
-    with _pin_precision(Modulation.QAM1024):
-        assert os.environ["SDR_TPU_MXU_PRECISION"] == "bf16x3"
-
-
 def test_waveform_dimension_flips_under_pa():
     """Under a low-backoff PA the SC-FDMA twin of a rung calibrates to
     a LOWER threshold than its OFDM twin (constant modulus ⇒ less

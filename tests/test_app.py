@@ -64,22 +64,24 @@ def test_cli_bench_list(capsys):
     assert "qpsk64-awgn" in capsys.readouterr().out
 
 
-def test_cli_bench_sanity(capsys):
-    """bench --sanity replays the round-2 methodology corrections:
-    a batch-pair scaling measurement and the probe-vs-kernel-bandwidth
-    comparison, as one JSON line (docs/PERF.md lessons)."""
-    assert main(["bench", "--sanity", "--sanity-batch", "64"]) == 0
+def test_cli_autotune_demod(capsys):
+    """autotune --demod times the one demod chain and prints its rate."""
+    assert main(["autotune", "--demod", "--demod-nfft", "256",
+                 "--demod-cp", "64", "--reps", "1"]) == 0
     out = json.loads(capsys.readouterr().out)
-    assert out["sanity"] is True
-    assert out["batch_pair"] == [64, 256]
-    assert len(out["gs_per_s"]) == 2 and all(g > 0 for g in out["gs_per_s"])
-    assert "small_batch_was_asymptote" in out
-    assert "probe_is_window_label_not_bound" in out
+    assert out["demod_samples_per_s"] > 0 and out["n_fft"] == 256
+
+
+def test_cli_info_names_the_demod_route(capsys):
+    assert main(["info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert "XLA" in info["demod"]
+    assert "demod_backends" not in info
 
 
 def test_cli_bench_runs_config0_small(capsys, monkeypatch):
-    """Config 0 semantics via CLI (shrunk: full 1e6-bit run is covered
-    by the TPU drive in the verify recipe)."""
+    """Config 0 semantics via CLI (shrunk: the full 1e6-bit run is
+    chip_smoke.py's entry-point phase)."""
     import sdr_tpu.app.baseline_configs as bc
     import dataclasses
 
@@ -287,9 +289,9 @@ def test_cli_config_file_round_trip(tmp_path, capsys):
 
 
 def test_cli_bench_mc_rejects_unsupported_config(capsys):
-    # config 0 is 64-subcarrier (below the fused kernel's 128-lane
-    # floor) — the MC gate must reject it with a clear error, not crash.
-    assert main(["bench", "--config", "0", "--mc", "2"]) == 2
+    # Acquisition impairments need the pipeline's blind receiver — the
+    # MC gate must reject them with a clear error, not crash.
+    assert main(["bench", "--config", "0", "--mc", "2", "--cfo", "1.5"]) == 2
     assert "--mc needs" in capsys.readouterr().err
 
 

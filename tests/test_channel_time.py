@@ -182,18 +182,17 @@ def test_config_gates():
 
 def test_fast_engine_multipath_time():
     """The fast engine carries the model: BER in the same band as the
-    pipeline engine, and the fused-kernel backend is decision-identical
-    to the jnp backend (per-symbol selective h planes through the
-    h_syms = n_symbols kernel path)."""
+    pipeline engine, and its counts equal the float64 numpy receiver's
+    decisions (per-symbol selective h planes)."""
+    import _np_ref
     from sdr_tpu.link import fast_simulate
 
     cfg = _cfg(ChannelModel.MULTIPATH_TIME, 0.02, ebno=12.0, nch=256)
-    e_j, c_j = fast_simulate(cfg, jax.random.PRNGKey(7), backend="jnp")
+    e_j, c_j = fast_simulate(cfg, jax.random.PRNGKey(7))
     b_fast = float(jnp.sum(e_j)) / float(jnp.sum(c_j))
     b_pipe = float(jnp.mean(simulate(cfg, jax.random.PRNGKey(8)).ber))
     assert abs(b_fast / b_pipe - 1.0) < 0.2, (b_fast, b_pipe)
 
-    # Fused-kernel parity needs a kernel-supported numerology (>= 128).
     small = LinkConfig(
         modulation=Modulation.QAM16,
         ofdm=OFDMConfig(n_fft=128, cp_len=32),
@@ -205,10 +204,9 @@ def test_fast_engine_multipath_time():
         n_symbols=8,
         n_channels=2,
     )
-    e_p, c_p = fast_simulate(small, jax.random.PRNGKey(9), backend="pallas")
-    e_j2, c_j2 = fast_simulate(small, jax.random.PRNGKey(9), backend="jnp")
-    np.testing.assert_array_equal(np.asarray(c_p), np.asarray(c_j2))
-    np.testing.assert_array_equal(np.asarray(e_p), np.asarray(e_j2))
+    e_s, _ = fast_simulate(small, jax.random.PRNGKey(9))
+    want, margin = _np_ref.fast_engine_counts(small, jax.random.PRNGKey(9))
+    assert np.all(np.abs(np.asarray(e_s) - want) <= margin)
 
 
 def test_sharded_stream_multipath_time_bit_exact():

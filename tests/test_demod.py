@@ -1,328 +1,174 @@
-"""Fused Pallas demod kernel vs the jnp op composition.
+"""The receive chain (ops.demod) against a float64 numpy reference.
 
-The fused kernel (kernels/demod_pallas.py) must reproduce the public
-ops path (ofdm_rx → equalize_mmse → llr_maxlog) — same contract the
-reference's RX + nearest-scan implements (ofdm.hpp:37-54,
-modulation.hpp:50-67), with soft output. On CPU the kernel runs in
-Pallas interpret mode; the numerics differ only by f32 matmul-DFT vs
-XLA FFT rounding.
+One implementation, compiled by XLA: CP strip → FFT → MMSE → max-log
+LLR, with the count and reduce_sum terminals. Each case builds a real
+link (Gray map → IDFT + CP → channel → noise) in numpy, demodulates it
+with the library and with tests/_np_ref.py, and compares:
+
+- LLRs to float32 accuracy relative to the largest LLR;
+- hard decisions exactly, except where the reference LLR is within that
+  tolerance of zero (a float32 chain may flip those);
+- error counts from the count terminal equal counts taken on the
+  library's own LLRs.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
+import _np_ref as ref
 from sdr_tpu.core.config import Modulation
 from sdr_tpu.ops.channel import ebno_db_to_noise_var
-from sdr_tpu.ops.demod import demod_chain_jnp
-from sdr_tpu.kernels.demod_pallas import demod_chain_pallas, supported
+from sdr_tpu.ops.demod import demod_chain, demod_count_chain
+
+TOL = 2e-5  # of max|LLR|: float32 FFT + arithmetic vs float64
 
 
-def _inputs(rng, batch, n_syms, sym_len, n_fft):
-    re = rng.standard_normal((batch, n_syms, sym_len)).astype(np.float32) * 0.1
-    im = rng.standard_normal((batch, n_syms, sym_len)).astype(np.float32) * 0.1
-    hr = rng.standard_normal((batch, 1, n_fft)).astype(np.float32)
-    hi = rng.standard_normal((batch, 1, n_fft)).astype(np.float32)
-    return map(jnp.asarray, (re, im, hr, hi))
-
-
-@pytest.mark.parametrize(
-    "mod,n_fft,cp",
-    [
-        (Modulation.QAM16, 256, 64),
-        (Modulation.QPSK, 128, 32),
-        (Modulation.QAM64, 256, 16),
-        (Modulation.BPSK, 128, 16),
-        (Modulation.QAM1024, 128, 32),
-    ],
-)
-def test_pallas_matches_jnp(rng, mod, n_fft, cp):
-    batch, n_syms = 4, 8
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    ref = demod_chain_jnp(re, im, hr, hi, cp, mod, nv)
-    got = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    assert got.shape == ref.shape == (batch, n_syms, n_fft * mod.bits_per_symbol)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=2e-3, atol=2e-3
-    )
-
-
-@pytest.mark.parametrize("split", [2, 4])
-def test_pallas_split_pipelining_bit_exact(rng, split, monkeypatch):
-    """SDR_TPU_DEMOD_SPLIT software pipelining is numerically a no-op:
-    the matmul and the VPU tail are row-independent, so chunked
-    processing must match split=1 bit-for-bit in every output mode."""
-    from sdr_tpu.kernels.demod_pallas import demod_count_pallas
-
-    batch, n_syms, n_fft, cp = 8, 8, 256, 64
-    mod = Modulation.QAM16
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    idx = jnp.asarray(
-        rng.integers(0, 1 << mod.bits_per_symbol, (batch, n_syms, n_fft)),
-        jnp.int32,
-    )
-    ref_llr = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    ref_cnt = demod_count_pallas(
-        re, im, hr, hi, idx, cp, mod, nv, interpret=True
-    )
-    monkeypatch.setenv("SDR_TPU_DEMOD_SPLIT", str(split))
-    got_llr = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    got_cnt = demod_count_pallas(
-        re, im, hr, hi, idx, cp, mod, nv, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got_llr), np.asarray(ref_llr))
-    np.testing.assert_array_equal(np.asarray(got_cnt), np.asarray(ref_cnt))
-
-
-def test_pallas_per_symbol_h_matches_jnp(rng):
-    """Per-symbol (time-varying) channel plane through the fused kernel."""
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    batch, n_syms = 4, 8
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    re, im, _, _ = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    hr = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    hi = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    ref = demod_chain_jnp(re, im, hr, hi, cp, mod, nv)
-    got = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=2e-3, atol=2e-3)
-
-
-def test_llr_pallas_per_symbol_h_matches_jnp(rng):
-    """Per-symbol h through the standalone equalize+LLR kernel."""
-    from sdr_tpu.kernels.llr_pallas import llr_chain_pallas
-    from sdr_tpu.ops.equalize import equalize_mmse
-    from sdr_tpu.ops.llr import llr_maxlog
-
-    mod, n_fft = Modulation.QAM64, 256
-    batch, n_syms = 2, 8
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    yr = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    yi = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    hr = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    hi = jnp.asarray(rng.standard_normal((batch, n_syms, n_fft)).astype(np.float32))
-    s, eff = equalize_mmse(
-        jax.lax.complex(yr, yi), jax.lax.complex(hr, hi), nv
-    )
-    ref = llr_maxlog(s, mod, eff)
-    got = llr_chain_pallas(yr, yi, hr, hi, mod, nv, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-3, atol=1e-3)
-
-
-def test_pallas_reduce_sum_matches_full(rng):
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    nv = float(ebno_db_to_noise_var(12.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, 4, 8, n_fft + cp, n_fft)
-    full = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    red = demod_chain_pallas(
-        re, im, hr, hi, cp, mod, nv, reduce_sum=True, interpret=True
-    )
-    np.testing.assert_allclose(
-        float(red), float(jnp.sum(full, dtype=jnp.float32)), rtol=1e-3
-    )
-
-
-def test_supported_gate():
-    assert supported((4, 8, 320), 64, Modulation.QAM16)
-    assert not supported((4, 8, 80), 16, Modulation.QAM16)  # n_fft=64 < 128
-    assert not supported((1, 3, 320), 64, Modulation.QAM16)  # rows % 8
-    assert not supported((4, 320), 64, Modulation.QAM16)  # not 3-D
-
-
-def test_demod_chain_auto_dispatch(rng):
-    """auto == jnp exactly on CPU (interpreted Pallas is never picked)."""
-    from sdr_tpu.ops.demod import demod_chain
-
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    nv = float(ebno_db_to_noise_var(12.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, 2, 8, n_fft + cp, n_fft)
-    auto = demod_chain(re, im, hr, hi, cp, mod, nv, backend="auto")
-    ref = demod_chain(re, im, hr, hi, cp, mod, nv, backend="jnp")
-    np.testing.assert_array_equal(np.asarray(auto), np.asarray(ref))
-
-
-def test_select_backend_rules():
-    """The pure dispatch rule across every regime."""
-    from sdr_tpu.ops.demod import select_backend
-
-    mod = Modulation.QAM16
-    full = (512, 64, 320)      # n_fft=256: full-fused territory
-    big = (64, 8, 4608)        # n_fft=4096 / CP512: four-step territory
-    oddcp = (64, 8, 4196)      # n_fft=4096 / CP100: N2 ∤ cp → hybrid
-    h_full = (512, 1, 256)
-    h_big = (64, 1, 4096)
-    assert select_backend(full, h_full, 64, mod, "tpu") == "pallas"
-    # Wideband auto prefers the HBM-staged split four-step (round 2c —
-    # it won every same-window hardware A/B; docs/hw_campaign.jsonl).
-    assert select_backend(big, h_big, 512, mod, "tpu") == "fourstep2"
-    assert select_backend(oddcp, h_big, 100, mod, "tpu") == "hybrid"
-    # CPU always composes.
-    assert select_backend(full, h_full, 64, mod, "cpu") == "jnp"
-    # Per-symbol h (time-varying fading) stays on the fused kernels.
-    assert select_backend(full, (512, 64, 256), 64, mod, "tpu") == "pallas"
-    assert select_backend(big, (64, 8, 4096), 512, mod, "tpu") == "fourstep2"
-    # Other broadcastable h layouts fall back rather than crashing.
-    assert select_backend(full, (512, 2, 256), 64, mod, "tpu") == "jnp"
-    assert select_backend(full, (1, 1, 256), 64, mod, "tpu") == "jnp"
-    # n_syms too large for a batch-tile-of-1 block falls back.
-    assert select_backend((1, 4096, 320), (1, 1, 256), 64, mod, "tpu") == "jnp"
-    # Odd n_fft falls back.
-    assert select_backend((8, 8, 80), (8, 1, 64), 16, mod, "tpu") == "jnp"
-
-
-@pytest.mark.parametrize(
-    "mod,n_fft,cp",
-    [
-        (Modulation.QAM16, 1024, 128),
-        (Modulation.QAM64, 256, 64),
-    ],
-)
-def test_hybrid_matches_jnp(rng, mod, n_fft, cp):
-    """XLA FFT + fused LLR kernel parity (the large-n_fft path)."""
-    from sdr_tpu.ops.demod import demod_chain_hybrid
-
-    batch, n_syms = 2, 8
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    ref = demod_chain_jnp(re, im, hr, hi, cp, mod, nv)
-    got = demod_chain_hybrid(re, im, hr, hi, cp, mod, nv)
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-3, atol=1e-3)
-
-
-def test_full_fused_gate_rejects_large_n():
-    """n_fft=1024 exceeds the VMEM gate → the full-fused kernel refuses
-    (the hybrid path owns it; parity covered by test_hybrid_matches_jnp)."""
-    from sdr_tpu.kernels.demod_pallas import supported as full_ok
-
-    assert not full_ok((2, 8, 1024 + 128), 128, Modulation.QAM16)
-
-
-def test_mxu_mode_bf16x2(rng, monkeypatch):
-    """bf16x2 (6-pass): x is truncated to bf16, so the transform carries
-    ~0.4% relative error (vs bf16x3's ~1e-5). This validates the
-    plumbing and bounds the drift; whether the BER curve survives is a
-    HARDWARE gate (like bf16x3's bit-identical-error-count check)."""
-    monkeypatch.setenv("SDR_TPU_MXU_PRECISION", "bf16x2")
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    nv = float(ebno_db_to_noise_var(10.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, 4, 8, n_fft + cp, n_fft)
-    ref = np.asarray(demod_chain_jnp(re, im, hr, hi, cp, mod, nv))
-    got = np.asarray(
-        demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    )
-    scale = np.abs(ref).max()
-    rel = np.abs(got - ref).max() / scale
-    assert rel < 2e-2, f"bf16x2 drift {rel:.3f} of full scale"
-
-
-@pytest.mark.parametrize(
-    "mod", [Modulation.QAM16, Modulation.QPSK, Modulation.BPSK, Modulation.QAM64]
-)
-def test_count_kernel_matches_llr_counting(rng, mod):
-    """Fused count kernel == hard decisions on the kernel's own public
-    LLRs (decision-exact: identical chain, only the terminal differs)."""
-    from sdr_tpu.kernels.demod_pallas import demod_count_pallas
-    from sdr_tpu.ops.modulation import _ints_to_bits
-
-    n_fft, cp = 256, 64
-    batch, n_syms = 4, 8
+def _link(rng, mod, n_fft, cp, h_layout, batch=2, n_syms=3, ebno=10.0,
+          despread=False):
+    """Transmitted indices, received planar samples and channel plane."""
     bps = mod.bits_per_symbol
-    nv = float(ebno_db_to_noise_var(8.0, bps))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    idx = jnp.asarray(
-        rng.integers(0, 1 << bps, (batch, n_syms, n_fft)), jnp.int32
-    )
-    llr = demod_chain_pallas(re, im, hr, hi, cp, mod, nv, interpret=True)
-    hard = (np.asarray(llr) < 0).astype(np.int8)
-    bits = np.asarray(_ints_to_bits(idx, bps))
-    want = (hard != bits).sum(axis=(1, 2))
-    got = np.asarray(
-        demod_count_pallas(re, im, hr, hi, idx, cp, mod, nv, interpret=True)
-    )
-    assert got.dtype == np.int32 and got.shape == (batch,)
-    np.testing.assert_array_equal(got, want)
+    nv = float(ebno_db_to_noise_var(ebno, bps))
+    idx = rng.integers(0, 1 << bps, (batch, n_syms, n_fft))
+    pts = ref.constellation(mod)[idx]
+    if despread:  # full-grid SC-FDMA: the waveform is the symbol stream
+        x = pts / np.sqrt(n_fft)
+        x = np.concatenate([x[..., n_fft - cp:], x], axis=-1)
+    else:
+        x = ref.ofdm_tx(pts, cp)
+    h_shape = {
+        "link": (batch, 1, n_fft),
+        "symbol": (batch, n_syms, n_fft),
+        "flat": (batch, 1, 1),
+    }[h_layout]
+    h = (rng.standard_normal(h_shape) + 1j * rng.standard_normal(h_shape))
+    h = h * np.sqrt(0.5)
+    # Per-subcarrier response applied in the frequency domain: the
+    # circulant channel a CP longer than the delay spread produces.
+    xf = np.fft.fft(x[..., cp:], axis=-1) * h
+    xt = np.fft.ifft(xf, axis=-1)
+    y = np.concatenate([xt[..., n_fft - cp:], xt], axis=-1)
+    noise = (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    y = y + noise * np.sqrt(nv / n_fft / 2)
+    f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    return (idx, nv, f32(y.real), f32(y.imag),
+            f32(np.real(h)), f32(np.imag(h)))
 
 
-def test_demod_count_chain_backends_agree(rng):
-    """ops.demod.demod_count_chain: fused path == jnp fallback counts
-    (the fast link's invariant across backends)."""
-    from sdr_tpu.ops.demod import demod_count_chain
+def _check_llrs(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL * scale)
+    decided = np.abs(want) > TOL * scale
+    assert np.array_equal((got < 0)[decided], (want < 0)[decided])
 
+
+@pytest.mark.parametrize("h_layout", ["link", "symbol"])
+@pytest.mark.parametrize(
+    "mod,n_fft,cp",
+    [
+        (Modulation.BPSK, 64, 16),
+        (Modulation.QPSK, 128, 32),
+        (Modulation.QAM16, 256, 64),
+        (Modulation.QAM64, 256, 16),
+        (Modulation.QAM256, 512, 128),
+        (Modulation.QAM1024, 128, 32),
+        (Modulation.QPSK, 1024, 128),
+        (Modulation.QAM16, 2048, 256),
+        (Modulation.QAM16, 4096, 512),
+    ],
+)
+def test_llrs_match_numpy(rng, mod, n_fft, cp, h_layout):
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, h_layout)
+    got = demod_chain(re, im, hr, hi, cp, mod, nv)
+    assert got.shape == (2, 3, n_fft * mod.bits_per_symbol)
+    assert got.dtype == jnp.float32
+    _check_llrs(got, ref.demod(re, im, hr, hi, cp, mod, nv))
+
+
+def test_flat_channel_broadcasts(rng):
+    """A (batch, 1, 1) channel plane broadcasts over the grid."""
     mod, n_fft, cp = Modulation.QAM16, 256, 64
-    batch, n_syms = 4, 8
-    nv = float(ebno_db_to_noise_var(8.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    idx = jnp.asarray(
-        rng.integers(0, 16, (batch, n_syms, n_fft)), jnp.int32
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "flat")
+    got = demod_chain(re, im, hr, hi, cp, mod, nv)
+    _check_llrs(got, ref.demod(re, im, hr, hi, cp, mod, nv))
+
+
+@pytest.mark.parametrize(
+    "mod",
+    [Modulation.BPSK, Modulation.QPSK, Modulation.QAM16, Modulation.QAM64,
+     Modulation.QAM256, Modulation.QAM1024],
+)
+def test_count_matches_numpy_decisions(rng, mod):
+    """The count terminal == bit errors of the reference hard decisions
+    (up to reference LLRs at the float32 decision margin)."""
+    n_fft, cp = 256, 64
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "link", ebno=6.0)
+    got = np.asarray(demod_count_chain(
+        re, im, hr, hi, jnp.asarray(idx, jnp.int32), cp, mod, nv))
+    want_llr = ref.demod(re, im, hr, hi, cp, mod, nv)
+    bits = ref.bits_of(idx, mod.bits_per_symbol)
+    want = ((want_llr < 0) != bits).sum(axis=(1, 2))
+    margin = (np.abs(want_llr) < TOL * np.abs(want_llr).max()).sum((1, 2))
+    assert got.dtype == np.int32 and got.shape == (2,)
+    assert np.all(np.abs(got - want) <= margin)
+    assert want.sum() > 0  # the case has errors to count
+
+
+def test_count_equals_counting_own_llrs(rng):
+    """Decision-identical terminals: count == sign errors of the LLRs."""
+    mod, n_fft, cp = Modulation.QAM16, 512, 64
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "symbol", ebno=6.0)
+    llr = np.asarray(demod_chain(re, im, hr, hi, cp, mod, nv))
+    bits = ref.bits_of(idx, mod.bits_per_symbol)
+    got = demod_count_chain(re, im, hr, hi, jnp.asarray(idx), cp, mod, nv)
+    np.testing.assert_array_equal(
+        np.asarray(got), ((llr < 0) != bits).sum(axis=(1, 2))
     )
-    a = demod_count_chain(re, im, hr, hi, idx, cp, mod, nv, backend="pallas")
-    b = demod_count_chain(re, im, hr, hi, idx, cp, mod, nv, backend="jnp")
-    # bf16x3 matmul-DFT vs XLA FFT can flip decisions only at noise
-    # level; at these sizes the counts must agree exactly or within a
-    # couple of boundary bits.
-    assert abs(int(np.asarray(a).sum()) - int(np.asarray(b).sum())) <= 2
 
 
-def test_pallas_bf16_input_mode(rng):
-    """bfloat16 sample planes (SDR_BENCH_INPUT_DTYPE=bf16, the round-3
-    headline mode — halves the kernel's HBM read and is physically
-    honest for 8-14-bit front ends): LLRs match the f32-input kernel
-    to the bf16 sample-quantization tolerance and hard decisions agree
-    except at near-zero LLRs."""
-    from sdr_tpu.kernels.demod_pallas import demod_chain_pallas
+@pytest.mark.parametrize("n_fft,cp", [(256, 64), (4096, 512)])
+def test_reduce_sum_matches_full(rng, n_fft, cp):
+    mod = Modulation.QAM16
+    _, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "link")
+    full = np.asarray(demod_chain(re, im, hr, hi, cp, mod, nv), np.float64)
+    red = float(demod_chain(re, im, hr, hi, cp, mod, nv, reduce_sum=True))
+    assert abs(red - full.sum()) <= 1e-5 * np.abs(full).sum()
 
+
+def test_noiseless_flat_link_decodes_exactly(rng):
+    """Zero noise through a unit channel: every decision is right."""
+    mod, n_fft, cp = Modulation.QAM64, 256, 32
+    idx = rng.integers(0, 64, (2, 4, n_fft))
+    x = ref.ofdm_tx(ref.constellation(mod)[idx], cp)
+    f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    ones = jnp.ones((2, 1, n_fft), jnp.float32)
+    errs = demod_count_chain(f32(x.real), f32(x.imag), ones, 0 * ones,
+                             jnp.asarray(idx), cp, mod, 1e-6)
+    np.testing.assert_array_equal(np.asarray(errs), [0, 0])
+
+
+@pytest.mark.parametrize(
+    "mod,n_fft,cp",
+    [(Modulation.QPSK, 64, 16), (Modulation.QAM16, 256, 64),
+     (Modulation.QAM64, 1024, 128)],
+)
+def test_scfde_llrs_match_numpy(rng, mod, n_fft, cp):
+    """SC-FDE receive (despread=True) against the numpy MMSE-FDE."""
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "link",
+                                    despread=True)
+    got = demod_chain(re, im, hr, hi, cp, mod, nv, despread=True)
+    _check_llrs(got, ref.demod(re, im, hr, hi, cp, mod, nv, despread=True))
+
+
+def test_scfde_count_matches_numpy(rng):
     mod, n_fft, cp = Modulation.QAM16, 256, 64
-    batch, n_syms = 4, 8
-    nv = float(ebno_db_to_noise_var(8.0, mod.bits_per_symbol))
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    l32 = np.asarray(demod_chain_pallas(re, im, hr, hi, cp, mod, nv))
-    l16 = np.asarray(
-        demod_chain_pallas(
-            re.astype(jnp.bfloat16), im.astype(jnp.bfloat16),
-            hr, hi, cp, mod, nv,
-        )
-    )
-    rel = np.abs(l16 - l32).max() / np.abs(l32).max()
-    assert rel < 2e-2, rel
-    disagree = (l16 < 0) != (l32 < 0)
-    # Sign flips only where the LLR is already ~0 (undecidable).
-    assert np.abs(l32[disagree]).max(initial=0.0) < 5e-2 * np.abs(l32).max()
-
-
-def test_pallas_scfde_despread_matches_jnp(rng):
-    """SC-FDE variant (full-grid SC-FDMA): the fused kernel's extra
-    IDFT matmul + bias-corrected MMSE-FDE matches the jnp composition
-    (ops.demod.demod_chain_jnp(despread=True)) to matmul tolerance."""
-    from sdr_tpu.kernels.demod_pallas import demod_chain_pallas
-    from sdr_tpu.ops.demod import demod_chain_jnp
-
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    re, im, hr, hi = _inputs(rng, 4, 8, n_fft + cp, n_fft)
-    a = np.asarray(
-        demod_chain_pallas(re, im, hr, hi, cp, mod, 0.05, despread=True)
-    )
-    b = np.asarray(
-        demod_chain_jnp(re, im, hr, hi, cp, mod, 0.05, despread=True)
-    )
-    assert np.abs(a - b).max() / np.abs(b).max() < 2e-4
-
-
-def test_demod_count_chain_scfde(rng):
-    """SC-FDE count terminal: in-kernel counting vs counting on the
-    jnp SC-FDE LLRs — decision-identical (within matmul-noise flips)."""
-    from sdr_tpu.ops.demod import demod_count_chain
-
-    mod, n_fft, cp = Modulation.QAM16, 256, 64
-    batch, n_syms = 4, 8
-    re, im, hr, hi = _inputs(rng, batch, n_syms, n_fft + cp, n_fft)
-    idx = jnp.asarray(
-        rng.integers(0, 16, (batch, n_syms, n_fft)), jnp.int32
-    )
-    a = demod_count_chain(re, im, hr, hi, idx, cp, mod, 0.05,
-                          backend="pallas", despread=True)
-    b = demod_count_chain(re, im, hr, hi, idx, cp, mod, 0.05,
-                          backend="jnp", despread=True)
-    assert abs(int(np.asarray(a).sum()) - int(np.asarray(b).sum())) <= 2
+    idx, nv, re, im, hr, hi = _link(rng, mod, n_fft, cp, "link", ebno=8.0,
+                                    despread=True)
+    got = np.asarray(demod_count_chain(
+        re, im, hr, hi, jnp.asarray(idx), cp, mod, nv, despread=True))
+    want_llr = ref.demod(re, im, hr, hi, cp, mod, nv, despread=True)
+    want = ((want_llr < 0) != ref.bits_of(idx, 4)).sum(axis=(1, 2))
+    margin = (np.abs(want_llr) < TOL * np.abs(want_llr).max()).sum((1, 2))
+    assert np.all(np.abs(got - want) <= margin)

@@ -3,7 +3,7 @@
 Transform-domain denoising of the comb-pilot LS estimate: invert the
 pilot samples to the impulse response, keep only the cp_len+1 taps the
 CP contract (reference ofdm.hpp:21) allows the channel to occupy, and
-re-evaluate on the full grid — one precomputed matmul (MXU-native).
+re-evaluate on the full grid — one precomputed matmul.
 Beats LS + linear interpolation twice over: the interpolation is exact
 for any in-CP channel, and out-of-subspace estimation noise is
 discarded (error scales by ~n_taps/n_pilots).

@@ -1,4 +1,4 @@
-"""Fast batched link (fused-kernel path) — statistical and parity checks."""
+"""Fast batched link (link.fast) — statistical and parity checks."""
 
 import numpy as np
 import jax
@@ -29,7 +29,7 @@ def test_fast_awgn_ber_matches_theory(mod):
         n_symbols=32,
         n_channels=16,
     )
-    errors, counted = make_fast_fn(cfg, backend="jnp")(jax.random.PRNGKey(0))
+    errors, counted = make_fast_fn(cfg)(jax.random.PRNGKey(0))
     ber = _ber(errors, counted)
     th = ber_awgn_exact(mod, 6.0)
     assert 0.85 * th < ber < 1.15 * th  # ~65k+ bits, loose statistical gate
@@ -48,7 +48,7 @@ def test_fast_rician_ber_matches_theory():
         n_symbols=4,
         n_channels=2048,  # fades are the statistical unit, not bits
     )
-    errors, counted = make_fast_fn(cfg, backend="jnp")(jax.random.PRNGKey(0))
+    errors, counted = make_fast_fn(cfg)(jax.random.PRNGKey(0))
     ber = _ber(errors, counted)
     th = ber_rician_exact(Modulation.QAM16, 8.0, 4.0)
     assert 0.88 * th < ber < 1.12 * th
@@ -62,7 +62,7 @@ def test_fast_identity_is_error_free():
         n_symbols=8,
         n_channels=4,
     )
-    errors, counted = fast_simulate(cfg, jax.random.PRNGKey(1), backend="jnp")
+    errors, counted = fast_simulate(cfg, jax.random.PRNGKey(1))
     assert int(np.asarray(errors).sum()) == 0
     assert int(np.asarray(counted).sum()) == cfg.bits_total
 
@@ -78,16 +78,18 @@ def test_fast_multipath_mmse_decodes_at_high_snr():
         n_symbols=16,
         n_channels=8,
     )
-    errors, counted = fast_simulate(cfg, jax.random.PRNGKey(2), backend="jnp")
+    errors, counted = fast_simulate(cfg, jax.random.PRNGKey(2))
     # CP >= delay spread + one-tap MMSE at 30 dB: essentially error-free
     # up to deep per-channel fades; allow a small residue.
     assert _ber(errors, counted) < 5e-3
 
 
-def test_fast_pallas_backend_matches_jnp_small(rng):
-    """Same key → identical error counts between backends (both paths
-    demap the same noisy grid; LLR rounding differences would need a
-    sample to sit exactly on a decision boundary to flip a bit)."""
+def test_fast_counts_match_numpy_demod():
+    """The engine's error counts == the float64 numpy receiver's
+    decisions on the engine's own TX + channel output (up to reference
+    LLRs at the float32 decision margin)."""
+    import _np_ref
+
     cfg = LinkConfig(
         modulation=Modulation.QAM16,
         ofdm=OFDMConfig(n_fft=128, cp_len=32),
@@ -95,10 +97,11 @@ def test_fast_pallas_backend_matches_jnp_small(rng):
         n_symbols=8,
         n_channels=2,
     )
-    e_j, c_j = fast_simulate(cfg, jax.random.PRNGKey(3), backend="jnp")
-    e_p, c_p = fast_simulate(cfg, jax.random.PRNGKey(3), backend="pallas")
-    np.testing.assert_array_equal(np.asarray(c_j), np.asarray(c_p))
-    np.testing.assert_array_equal(np.asarray(e_j), np.asarray(e_p))
+    key = jax.random.PRNGKey(3)
+    e, c = fast_simulate(cfg, key)
+    want, margin = _np_ref.fast_engine_counts(cfg, key)
+    assert np.all(np.abs(np.asarray(e) - want) <= margin)
+    assert int(np.sum(c)) == 2 * 8 * 128 * 4
 
 
 def test_fast_rayleigh_time_is_fading_not_awgn():
@@ -119,7 +122,7 @@ def test_fast_rayleigh_time_is_fading_not_awgn():
         n_symbols=32,
         n_channels=256,  # BER variance is fading-realization-dominated
     )
-    e_f, c_f = fast_simulate(cfg, jax.random.PRNGKey(5), backend="jnp")
+    e_f, c_f = fast_simulate(cfg, jax.random.PRNGKey(5))
     ber_fast = _ber(e_f, c_f)
     res = simulate(cfg, jax.random.PRNGKey(7))
     ber_pipe = _ber(res.bit_errors, res.bits_counted)
@@ -131,8 +134,10 @@ def test_fast_rayleigh_time_is_fading_not_awgn():
     assert ber_fast > 100 * ber_awgn_exact(Modulation.QPSK, 10.0)
 
 
-def test_fast_rayleigh_time_pallas_matches_jnp():
-    """Per-symbol h flows through the fused kernels bit-compatibly."""
+def test_fast_rayleigh_time_counts_match_numpy_demod():
+    """Per-symbol h planes: counts == the numpy receiver's decisions."""
+    import _np_ref
+
     cfg = LinkConfig(
         modulation=Modulation.QAM16,
         ofdm=OFDMConfig(n_fft=128, cp_len=32),
@@ -143,20 +148,20 @@ def test_fast_rayleigh_time_pallas_matches_jnp():
         n_symbols=8,
         n_channels=2,
     )
-    e_j, c_j = fast_simulate(cfg, jax.random.PRNGKey(6), backend="jnp")
-    e_p, c_p = fast_simulate(cfg, jax.random.PRNGKey(6), backend="pallas")
-    np.testing.assert_array_equal(np.asarray(c_j), np.asarray(c_p))
-    np.testing.assert_array_equal(np.asarray(e_j), np.asarray(e_p))
+    key = jax.random.PRNGKey(6)
+    e, _ = fast_simulate(cfg, key)
+    want, margin = _np_ref.fast_engine_counts(cfg, key)
+    assert np.all(np.abs(np.asarray(e) - want) <= margin)
 
 
 def test_fast_scfdma_full_grid():
     """Round 3: full-grid SC-FDMA runs on the THROUGHPUT engine.
 
     The precode and IFFT cancel (single-carrier with CP), so TX is a
-    scale + CP concat and RX is SC-FDE (per-tone equalize + fused IDFT
-    matmul). On AWGN the SC-FDE link sits on the same exact theory as
-    OFDM; under multipath it runs the same bias-corrected MMSE-FDE
-    receiver the pipeline uses (identical math, kernel-fused)."""
+    scale + CP concat and RX is SC-FDE (per-tone equalize + IDFT). On
+    AWGN the SC-FDE link sits on the same exact theory as OFDM; under
+    multipath it runs the same bias-corrected MMSE-FDE receiver the
+    pipeline uses."""
     from sdr_tpu.link.ber import ber_awgn_exact
 
     cfg = LinkConfig(

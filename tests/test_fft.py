@@ -102,3 +102,15 @@ def test_known_impulse():
     for backend in ("xla", "matmul"):
         y = np.asarray(fft(jnp.asarray(x), backend=backend))
         assert_ref_float_close(y, np.ones(64, np.complex64))
+
+
+@pytest.mark.parametrize("n", [12, 64, 4096])
+def test_xla_ifft_matches_numpy(n, rng):
+    """The forward-transform inverse (conj∘fft∘conj / N) equals numpy's
+    ifft at any length, batched over leading axes."""
+    from sdr_tpu.ops.fft import xla_ifft
+
+    x = (rng.standard_normal((3, 2, n)) + 1j * rng.standard_normal((3, 2, n)))
+    got = np.asarray(xla_ifft(jnp.asarray(x, jnp.complex64)))
+    want = np.fft.ifft(x, axis=-1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * np.abs(x).max())

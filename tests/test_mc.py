@@ -1,12 +1,12 @@
-"""Monte-Carlo link kernel (kernels/mc_pallas.py).
+"""Monte-Carlo driver (link.mc): ``iters`` fast-engine passes in one
+``lax.fori_loop``, one key per pass.
 
-The hardware PRNG has no interpret-mode implementation, so CPU tests
-pin the kernel's MATH via the ``rand_inputs`` injection mode against
-a jnp composition of the identical model (channel in frequency, noise
-in time, both transforms, genie-CSI MMSE, max-log hard decisions).
-Statistical validation of the in-kernel draws runs on hardware
-(the driver/queue scripts; docs/PERF.md).
+BER against exact theory for every channel model it runs, the int32
+counter guard, the pass accumulation, and sharded == unsharded on the
+8-device CPU mesh (every draw is keyed by global channel id).
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -16,273 +16,148 @@ import pytest
 from sdr_tpu.core.config import (
     ChannelConfig,
     ChannelModel,
+    Equalizer,
     LinkConfig,
     Modulation,
     OFDMConfig,
 )
-from sdr_tpu.kernels.mc_pallas import mc_count_pallas, supported
-from sdr_tpu.ops.modulation import _ints_to_bits, modulate
+from sdr_tpu.link.ber import (
+    ber_awgn_exact,
+    ber_rayleigh_exact,
+    ber_rician_exact,
+)
+from sdr_tpu.link.fast import fast_core
+from sdr_tpu.link.mc import make_mc_fn, mc_simulate, supported
 
 
-def _cfg(model=ChannelModel.AWGN, mod=Modulation.QAM16, ebno=8.0,
-         doppler_norm=None, **kw):
-    ch = dict(model=model, ebno_db=ebno)
-    if model in (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME):
-        ch["pdp"] = (1.0, 0.5, 0.25)
-    if doppler_norm is not None:
-        ch["doppler_norm"] = doppler_norm
-    kw.setdefault("n_symbols", 8)
-    kw.setdefault("n_channels", 4)
+def _cfg(model=ChannelModel.AWGN, ebno=6.0, n_fft=64, cp=16, **kw):
+    kw.setdefault("n_symbols", 4)
+    kw.setdefault("n_channels", 256)
     return LinkConfig(
-        modulation=mod,
-        ofdm=OFDMConfig(n_fft=256, cp_len=64),
-        channel=ChannelConfig(**ch),
+        modulation=kw.pop("mod", Modulation.QPSK),
+        ofdm=OFDMConfig(n_fft=n_fft, cp_len=cp),
+        channel=ChannelConfig(
+            model=model,
+            ebno_db=ebno,
+            pdp=(1.0, 0.5, 0.25)
+            if model in (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME)
+            else (1.0,),
+            doppler_norm=0.05,
+            k_factor=4.0,
+        ),
+        equalizer=Equalizer.MMSE,
         **kw,
     )
 
 
-def _oracle_counts(cfg, idx, nr, ni, hr, hi):
-    """jnp twin of the kernel's model: freq channel → IDFT → time AWGN
-    → DFT → genie MMSE → max-log hard decisions vs idx."""
-    from sdr_tpu.ops.equalize import equalize_mmse
-    from sdr_tpu.ops.llr import llr_maxlog
-
-    mod = cfg.modulation
-    bps = mod.bits_per_symbol
-    N = cfg.ofdm.n_fft
-    nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
-    x = modulate(_ints_to_bits(idx, bps), mod)  # (B,S,N) complex
-    h = jax.lax.complex(hr, hi)
-    if cfg.channel.model in (
-        ChannelModel.RAYLEIGH_FLAT,
-        ChannelModel.MULTIPATH,
-        ChannelModel.RAYLEIGH_TIME,
-        ChannelModel.RICIAN,
-        ChannelModel.MULTIPATH_TIME,
-    ):
-        x = x * h
-        h_eq = h
-    else:
-        h_eq = jnp.ones_like(h)
-    xt = jnp.fft.ifft(x, axis=-1)  # 1/N inverse, reference convention
-    sigma = np.sqrt(nv / N / 2.0)
-    yt = xt
-    if cfg.channel.model is not ChannelModel.IDENTITY:
-        yt = yt + (nr + 1j * ni) * sigma
-    y = jnp.fft.fft(yt, axis=-1)
-    s, eff = equalize_mmse(y, h_eq, nv)
-    llr = llr_maxlog(s, mod, eff)
-    hard = (np.asarray(llr) < 0).astype(np.int8)
-    bits = np.asarray(_ints_to_bits(idx, bps))
-    return (hard != bits).sum(axis=(1, 2))
+def _ber(cfg, iters=4, seed=1):
+    e, c = make_mc_fn(cfg, iters=iters)(seed)
+    return float(np.sum(e)) / float(np.sum(c))
 
 
 @pytest.mark.parametrize(
-    "model", [ChannelModel.AWGN, ChannelModel.RAYLEIGH_FLAT,
-              ChannelModel.MULTIPATH, ChannelModel.IDENTITY,
-              ChannelModel.RAYLEIGH_TIME, ChannelModel.RICIAN,
-              ChannelModel.MULTIPATH_TIME]
+    "model,ebno,tol",
+    [
+        (ChannelModel.AWGN, 6.0, 0.1),
+        (ChannelModel.RAYLEIGH_FLAT, 10.0, 0.25),
+        (ChannelModel.RICIAN, 10.0, 0.25),
+        (ChannelModel.RAYLEIGH_TIME, 10.0, 0.25),
+        (ChannelModel.MULTIPATH, 10.0, 0.25),
+        (ChannelModel.MULTIPATH_TIME, 10.0, 0.25),
+    ],
 )
-def test_mc_inject_matches_jnp_model(rng, model):
-    time_varying = model in (
-        ChannelModel.RAYLEIGH_TIME, ChannelModel.MULTIPATH_TIME
-    )
-    kw = {"doppler_norm": 0.02} if time_varying else {}
-    cfg = _cfg(model=model, ebno=6.0, **kw)
-    assert supported(cfg)
-    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
-    h_syms = S if time_varying else 1
-    bps = cfg.modulation.bits_per_symbol
-    idx = jnp.asarray(rng.integers(0, 1 << bps, (B, S, N)), jnp.int32)
-    nr = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    ni = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal((B, h_syms, N)), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal((B, h_syms, N)), jnp.float32)
-    got = np.asarray(
-        mc_count_pallas(cfg, 0, interpret=True,
-                        rand_inputs=(idx, nr, ni, hr, hi))
-    )
-    want = _oracle_counts(cfg, idx, nr, ni, hr, hi)
-    assert got.shape == (B,) and got.dtype == np.int32
-    # bf16x3 matmul transforms vs XLA FFT can flip individual boundary
-    # decisions; counts must track closely.
-    assert np.abs(got - want).max() <= max(2, int(0.02 * want.max() + 1)), (
-        got, want,
-    )
+def test_mc_ber_matches_theory(model, ebno, tol):
+    """Each pass draws fresh channels, so 4 passes x 256 links average
+    the fading; every selective model is Rayleigh per subcarrier."""
+    cfg = _cfg(model, ebno)
+    mod = cfg.modulation
+    if model == ChannelModel.AWGN:
+        th = ber_awgn_exact(mod, ebno)
+    elif model == ChannelModel.RICIAN:
+        th = ber_rician_exact(mod, ebno, 4.0)
+    else:
+        th = ber_rayleigh_exact(mod, ebno)
+    ber = _ber(cfg)
+    assert abs(ber / th - 1.0) < tol, (ber, th)
+
+
+@pytest.mark.parametrize("n_fft,cp", [(64, 16), (1024, 128)])
+def test_mc_scfdma_ber_matches_theory(n_fft, cp):
+    """Full-grid SC-FDMA over AWGN: SC-FDE receive sits on theory."""
+    cfg = _cfg(ChannelModel.AWGN, 6.0, n_fft, cp, dft_spread=True,
+               n_channels=64 if n_fft == 64 else 8)
+    th = ber_awgn_exact(cfg.modulation, 6.0)
+    assert abs(_ber(cfg) / th - 1.0) < 0.1
+
+
+def test_mc_identity_zero_errors():
+    e, c = mc_simulate(_cfg(ChannelModel.IDENTITY, n_channels=4), 0,
+                       iters=2)
+    assert int(np.sum(e)) == 0 and int(np.sum(c)) == 4 * 2 * 4 * 64 * 2
+
+
+def test_mc_counter_guard():
+    """iters that would overflow the int32 per-channel counter raise."""
+    cfg = _cfg(n_fft=4096, cp=512, n_symbols=64, n_channels=2,
+               mod=Modulation.QAM1024)
+    per_pass = 64 * 4096 * 10
+    with pytest.raises(ValueError, match="overflows"):
+        mc_simulate(cfg, 0, iters=2**31 // per_pass + 1)
 
 
 def test_mc_supported_gate():
+    from sdr_tpu.core.config import MIMOConfig, MIMOScheme
+
     assert supported(_cfg())
-    assert supported(_cfg(model=ChannelModel.RAYLEIGH_TIME, doppler_norm=0.02))
-    wide = LinkConfig(
-        modulation=Modulation.QAM16,
-        ofdm=OFDMConfig(n_fft=1024, cp_len=256),
-        channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=8.0),
-        n_symbols=8, n_channels=4,
-    )
-    assert supported(wide)  # four-step MC variant
-    small = LinkConfig(
-        modulation=Modulation.QPSK,
-        ofdm=OFDMConfig(n_fft=64, cp_len=16),
-        channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=8.0),
-        n_symbols=8, n_channels=4,
-    )
-    assert not supported(small)  # below the 128-lane kernel floor
-    from sdr_tpu.core.config import Equalizer
-
-    piloted = _cfg(pilot_spacing=8, equalizer=Equalizer.MMSE)
+    assert supported(_cfg(ChannelModel.MULTIPATH_TIME))
+    piloted = dataclasses.replace(_cfg(), pilot_spacing=8)
     assert not supported(piloted)
-    with pytest.raises(ValueError):
-        mc_count_pallas(small, 0, interpret=True)
+    assert not supported(dataclasses.replace(
+        _cfg(ChannelModel.RAYLEIGH_FLAT),
+        mimo=MIMOConfig(MIMOScheme.MRC, 1, 2),
+    ))
+    with pytest.raises(ValueError, match="does not support"):
+        mc_simulate(piloted, 0)
 
 
-def test_mc_identity_zero_errors(rng):
-    """IDENTITY channel, no noise → the loopback must be error-free
-    (the MC twin of the reference's exact byte round trip)."""
-    cfg = _cfg(model=ChannelModel.IDENTITY)
-    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
-    bps = cfg.modulation.bits_per_symbol
-    idx = jnp.asarray(rng.integers(0, 1 << bps, (B, S, N)), jnp.int32)
-    z = jnp.zeros((B, S, N), jnp.float32)
-    h = jnp.zeros((B, 1, N), jnp.float32)
-    got = np.asarray(
-        mc_count_pallas(cfg, 0, interpret=True,
-                        rand_inputs=(idx, z, z, h, h))
+def test_mc_passes_accumulate():
+    """iters passes == the sum of fast_core over the per-pass keys."""
+    cfg = _cfg(ChannelModel.RAYLEIGH_FLAT, n_channels=6)
+    e, c = mc_simulate(cfg, 7, iters=3)
+    base = jax.random.fold_in(jax.random.PRNGKey(0), 7)
+    ids = jnp.arange(6, dtype=jnp.int32)
+    want = sum(
+        np.asarray(fast_core(cfg, jax.random.fold_in(base, i), ids)[0])
+        for i in range(3)
     )
-    np.testing.assert_array_equal(got, np.zeros(B, np.int32))
+    np.testing.assert_array_equal(np.asarray(e), want)
+    assert int(c[0]) == 3 * 4 * 64 * 2
 
 
-@pytest.mark.parametrize(
-    "model", [ChannelModel.AWGN, ChannelModel.MULTIPATH,
-              ChannelModel.MULTIPATH_TIME]
-)
-def test_mc_wideband_inject_matches_jnp_model(rng, model):
-    """Four-step MC variant (n_fft=1024) vs the jnp model, inject mode."""
-    ch = dict(model=model, ebno_db=6.0)
-    if model in (ChannelModel.MULTIPATH, ChannelModel.MULTIPATH_TIME):
-        ch["pdp"] = (1.0, 0.5, 0.25)
-    if model == ChannelModel.MULTIPATH_TIME:
-        ch["doppler_norm"] = 0.02
-    cfg = LinkConfig(
-        modulation=Modulation.QAM16,
-        ofdm=OFDMConfig(n_fft=1024, cp_len=256),
-        channel=ChannelConfig(**ch),
-        n_symbols=4,
-        n_channels=2,
-    )
-    assert supported(cfg)
-    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
-    h_syms = S if model == ChannelModel.MULTIPATH_TIME else 1
-    bps = cfg.modulation.bits_per_symbol
-    idx = jnp.asarray(rng.integers(0, 1 << bps, (B, S, N)), jnp.int32)
-    nr = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    ni = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal((B, h_syms, N)), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal((B, h_syms, N)), jnp.float32)
-    got = np.asarray(
-        mc_count_pallas(cfg, 0, interpret=True,
-                        rand_inputs=(idx, nr, ni, hr, hi))
-    )
-    want = _oracle_counts(cfg, idx, nr, ni, hr, hi)
-    assert got.shape == (B,) and got.dtype == np.int32
-    assert np.abs(got - want).max() <= max(2, int(0.02 * want.max() + 1)), (
-        got, want,
-    )
+def test_mc_seed_changes_draws():
+    cfg = _cfg(ChannelModel.AWGN, 2.0, n_channels=8)
+    a, _ = mc_simulate(cfg, 1)
+    b, _ = mc_simulate(cfg, 2)
+    assert not np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_mc_sharded_inject_bit_exact(rng):
-    """Sharded MC (channel DP) == unsharded, inject mode, on the
-    8-device CPU mesh — pins the shard_map composition."""
-    from sdr_tpu.parallel.mesh import make_link_mesh
-    from sdr_tpu.parallel.shard import make_sharded_mc_inject_fn
-
-    cfg = _cfg(model=ChannelModel.MULTIPATH, ebno=6.0, n_channels=8)
-    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
-    bps = cfg.modulation.bits_per_symbol
-    idx = jnp.asarray(rng.integers(0, 1 << bps, (B, S, N)), jnp.int32)
-    nr = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    ni = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal((B, 1, N)), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal((B, 1, N)), jnp.float32)
-    e0 = np.asarray(
-        mc_count_pallas(cfg, 0, interpret=True,
-                        rand_inputs=(idx, nr, ni, hr, hi))
-    )
-    mesh = make_link_mesh(1, 8)
-    es, cs = make_sharded_mc_inject_fn(cfg, mesh)(idx, nr, ni, hr, hi)
-    np.testing.assert_array_equal(np.asarray(es), e0)
-    assert int(np.asarray(cs)[0]) == S * N * bps
+def test_mc_seed_is_traced():
+    """make_mc_fn compiles once: the seed is a runtime argument."""
+    fn = make_mc_fn(_cfg(n_channels=4), iters=2)
+    a = fn(jnp.int32(3))
+    b = fn(jnp.int32(3))
+    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
+    assert fn._cache_size() == 1
 
 
-@pytest.mark.parametrize(
-    "model", [ChannelModel.AWGN, ChannelModel.RAYLEIGH_FLAT,
-              ChannelModel.MULTIPATH]
-)
-def test_mc_scfdma_inject_matches_jnp_model(rng, model):
-    """SC-FDMA MC kernel (round 3): spread → xH → IDFT → time AWGN →
-    DFT → biased-MMSE SC-FDE (bias-corrected despread) → count, vs
-    the jnp composition in inject mode."""
-    import dataclasses
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_mc_sharded_bit_exact(n_shards):
+    from sdr_tpu.parallel import make_link_mesh
+    from sdr_tpu.parallel.shard import make_sharded_mc_fn
 
-    from sdr_tpu.ops.equalize import equalize_mmse_fde
-    from sdr_tpu.ops.llr import llr_maxlog
-
-    cfg = dataclasses.replace(_cfg(model=model, ebno=6.0), dft_spread=True)
-    assert supported(cfg)
-    B, S, N = cfg.n_channels, cfg.n_symbols, cfg.ofdm.n_fft
-    mod = cfg.modulation
-    bps = mod.bits_per_symbol
-    idx = jnp.asarray(rng.integers(0, 1 << bps, (B, S, N)), jnp.int32)
-    nr = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    ni = jnp.asarray(rng.standard_normal((B, S, N)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal((B, 1, N)), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal((B, 1, N)), jnp.float32)
-    got = np.asarray(
-        mc_count_pallas(cfg, 0, interpret=True,
-                        rand_inputs=(idx, nr, ni, hr, hi))
-    )
-    # jnp twin: spread(x·norm/sqrt(N)) ×H, IDFT, time noise, DFT,
-    # ZF-unbiased equalize, tone-mean noise, despread.
-    nv = 1.0 / (10.0 ** (cfg.channel.ebno_db / 10.0) * bps)
-    x = modulate(_ints_to_bits(idx, bps), mod)  # normalized points
-    xf = jnp.fft.fft(x, axis=-1) * jnp.float32(N**-0.5)
-    h = jax.lax.complex(hr, hi)
-    if model != ChannelModel.AWGN:
-        xf = xf * h
-        h_eq = h
-    else:
-        h_eq = jnp.ones_like(h)
-    yt = jnp.fft.ifft(xf, axis=-1) + (nr + 1j * ni) * np.sqrt(nv / N / 2.0)
-    y = jnp.fft.fft(yt, axis=-1)
-    s, eff = equalize_mmse_fde(y, h_eq, nv)
-    llr = llr_maxlog(s, mod, eff)
-    hard = (np.asarray(llr) < 0).astype(np.int8)
-    want = (hard != np.asarray(_ints_to_bits(idx, bps))).sum(axis=(1, 2))
-    assert np.abs(got - want).max() <= max(2, int(0.02 * want.max() + 1)), (
-        got, want,
-    )
-
-
-def test_mc_wideband_scfdma_staged_path(rng):
-    """Round 4: mc_simulate at wideband SC-FDMA (n_fft >= 1024) rides
-    the staged composition (trivial single-carrier TX + fused SC-FDE
-    count) — AWGN BER must sit on exact theory."""
-    from sdr_tpu.core.config import Equalizer
-    from sdr_tpu.link.ber import ber_awgn_exact
-    from sdr_tpu.link.mc import _fde_mc_supported, mc_simulate
-
-    cfg = LinkConfig(
-        modulation=Modulation.QAM16,
-        ofdm=OFDMConfig(n_fft=1024, cp_len=256),
-        channel=ChannelConfig(model=ChannelModel.AWGN, ebno_db=8.0),
-        equalizer=Equalizer.MMSE,
-        dft_spread=True,
-        n_symbols=4,
-        n_channels=16,
-    )
-    assert not supported(cfg)  # the in-kernel path is (rightly) gated
-    assert _fde_mc_supported(cfg)
-    errs, cnt = mc_simulate(cfg, seed=3, iters=2)
-    ber = float(jnp.sum(errs)) / float(jnp.sum(cnt))
-    th = float(ber_awgn_exact(Modulation.QAM16, 8.0))
-    assert abs(ber - th) / th < 0.08, (ber, th)
+    cfg = _cfg(ChannelModel.MULTIPATH, 8.0, n_channels=24)
+    mesh = make_link_mesh(1, n_shards, devices=jax.devices()[:n_shards])
+    got, cnt = make_sharded_mc_fn(cfg, mesh, iters=2)(5)
+    want, _ = make_mc_fn(cfg, iters=2)(5)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert np.asarray(cnt).shape == (24,)

@@ -544,7 +544,7 @@ def test_mimo_gated_out_of_siso_engines():
     cfg = LinkConfig(**_BASE, mimo=MIMOConfig(MIMOScheme.MRC, 1, 2))
     from sdr_tpu.link.fast import fast_simulate
     from sdr_tpu.link.stream import stream_simulate
-    from sdr_tpu.kernels.mc_pallas import supported
+    from sdr_tpu.link.mc import supported
 
     with pytest.raises(NotImplementedError):
         fast_simulate(cfg, jax.random.PRNGKey(0))

@@ -11,37 +11,50 @@ from sdr_tpu.core.config import (
     Modulation,
     OFDMConfig,
 )
-from sdr_tpu.obs.roofline import ChipProfile, demod_roofline
+from sdr_tpu.obs.roofline import chip_peaks, demod_roofline
+
+H100 = "NVIDIA H100 80GB HBM3"
 from sdr_tpu.obs.sweep import ebno_sweep
 
 
-def test_roofline_fused_traffic_at_256():
-    r = demod_roofline(256, 64, Modulation.QAM16, fused=True)
-    # Fused kernel reads 8 B/sample; nothing else touches HBM. The N²
-    # matmul-DFT makes it compute-bound on f32 MXU rates.
-    assert abs(r.bytes_per_sample - 8.0) < 1e-9
-    assert r.bound == "compute"
-    assert r.sol_samples_per_s > 1e9  # speed of light far above target
-    assert r.sol_samples_per_s_datasheet >= r.sol_samples_per_s
+def test_roofline_xla_traffic_at_256():
+    """XLA composition at 256sc/CP64: the 8 B planar read per sample
+    plus the stripped symbol and FFT output written and read back
+    (4 x 256 x 8 B per 320-sample symbol); memory-bound on the H100."""
+    r = demod_roofline(256, 64, Modulation.QAM16, chip_peaks(H100))
+    assert abs(r.bytes_per_sample - (8.0 + 4 * 256 * 8 / 320)) < 1e-9
+    assert r.bound == "memory"
+    assert r.sol_samples_per_s > 1e9
 
 
-def test_roofline_unfused_pays_more_traffic():
-    fused = demod_roofline(256, 64, Modulation.QAM16, fused=True)
-    unfused = demod_roofline(256, 64, Modulation.QAM16, fused=False)
-    assert unfused.bytes_per_sample > fused.bytes_per_sample
+def test_roofline_llr_write_pays_more_traffic():
+    peaks = chip_peaks(H100)
+    a = demod_roofline(256, 64, Modulation.QAM16, peaks)
+    b = demod_roofline(256, 64, Modulation.QAM16, peaks, write_llrs=True)
+    assert abs(b.bytes_per_sample - a.bytes_per_sample
+               - 256 * 4 * 4 / 320) < 1e-9
 
 
 def test_roofline_efficiency_fraction():
     r = demod_roofline(
-        256, 64, Modulation.QAM16, fused=True, measured_samples_per_s=5e9
+        256, 64, Modulation.QAM16, chip_peaks(H100),
+        measured_samples_per_s=5e9,
     )
     assert 0.0 < r.efficiency < 1.0
 
 
-def test_roofline_compute_bound_at_large_n():
-    """At 4096 subcarriers the N² matmul DFT dominates the 8 B/sample."""
-    r = demod_roofline(4096, 512, Modulation.QAM16, fused=True)
-    assert r.bound == "compute"
+def test_roofline_peaks_table():
+    """The H100 entry carries the data-sheet peaks and their source; a
+    device_kind the table does not hold is an error, not a default."""
+    p = chip_peaks(H100)
+    assert p.hbm_bytes_per_s == 3.35e12 and p.power_limit_w == 700.0
+    assert (p.bf16_flops, p.tf32_flops, p.f32_flops) == (989e12, 495e12,
+                                                         67e12)
+    assert "data sheet" in p.source
+    with pytest.raises(KeyError, match="no published peaks"):
+        chip_peaks("cpu")
+    with pytest.raises(KeyError):
+        chip_peaks("NVIDIA A100-SXM4-40GB")
 
 
 def test_sweep_accumulates_until_target(tmp_path):
@@ -179,7 +192,7 @@ def test_weak_scaling_runs_on_virtual_mesh():
         n_symbols=8,
         n_channels=2,
     )
-    pts = weak_scaling(cfg, device_counts=[1, 2], iters=2, reps=1)
+    pts = weak_scaling(cfg, device_counts=[1, 2], reps=1)
     assert [p.n_devices for p in pts] == [1, 2]
     assert pts[0].n_channels == 2 and pts[1].n_channels == 4
     assert all(p.samples_per_s > 0 for p in pts)
@@ -204,11 +217,21 @@ def test_metrics_counters_and_jsonl(tmp_path):
     assert lines[-1]["case"] == "qam16-256-llr"
 
 
-def test_probe_device_healthy_on_cpu():
-    from sdr_tpu.obs.health import probe_device
+def test_median_seconds_waits_for_results():
+    """The timing helper runs the program once untimed, then returns
+    the median of ``reps`` waited-for calls."""
+    import jax.numpy as jnp
 
-    rep = probe_device(timeout_s=60.0)
-    assert rep.healthy and rep.backend == "cpu" and rep.latency_s is not None
+    from sdr_tpu.obs.autotune import median_seconds
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return jnp.sum(x * x)
+
+    sec = median_seconds(fn, (jnp.ones((64, 64)),), reps=3)
+    assert sec > 0 and len(calls) == 4
 
 
 def test_ber_plot_artifact(tmp_path):
@@ -263,22 +286,16 @@ def test_profiler_trace_captures_real_artifacts(tmp_path):
 
 
 def test_tune_demod_reports_backends():
+    """tune_demod times the one demod chain at a shape: a positive rate
+    in complex samples/s."""
     from sdr_tpu.obs.autotune import tune_demod
 
-    import os
-
-    pts = tune_demod(n_fft=1024, cp_len=256, batch=8, n_syms=8, iters=1,
-                     reps=1, backends=("jnp", "hybrid", "fourstep2:bf16"))
-    by = {p.backend: p for p in pts}
-    assert by["jnp"].error is None and by["jnp"].gs_per_s > 0
-    assert by["hybrid"].error is None and by["hybrid"].gs_per_s > 0
-    # the staged-variant spec must time (CPU runs it via interpret-free
-    # jnp fallback or the kernel gate errors cleanly) and must restore env
-    assert "SDR_TPU_FOURSTEP_STAGE" not in os.environ
+    rate = tune_demod(n_fft=1024, cp_len=256, batch=8, n_syms=8, reps=1)
+    assert rate > 0
 
 
 def test_sweep_fast_engine(tmp_path):
-    """engine='fast' (fused-kernel link) hits the same statistics and
+    """engine='fast' (the batched link) hits the same statistics and
     keeps its checkpoint namespace separate from the pipeline's."""
     cfg = LinkConfig(
         modulation=Modulation.QPSK,

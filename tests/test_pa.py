@@ -330,7 +330,7 @@ def test_pa_and_spread_config_gates():
     from sdr_tpu.link.fast import fast_simulate
     from sdr_tpu.link.stream import stream_simulate
     from sdr_tpu.link.mc import mc_simulate
-    from sdr_tpu.kernels.mc_pallas import supported
+    from sdr_tpu.link.mc import supported
 
     cfg = LinkConfig(
         modulation=Modulation.QPSK,
@@ -340,9 +340,8 @@ def test_pa_and_spread_config_gates():
         n_channels=8,
         dft_spread=True,
     )
-    # Round 3: FULL-GRID SC-FDMA runs on EVERY engine now — fast
-    # (SC-FDE kernel), stream (per-symbol spread/despread, seams
-    # untouched), and MC at n_fft <= 256 (this cfg is 128: supported).
+    # FULL-GRID SC-FDMA runs on EVERY engine — fast (SC-FDE receive),
+    # stream (per-symbol spread/despread, seams untouched), and MC.
     e, c = fast_simulate(cfg, jax.random.PRNGKey(0))
     assert int(np.asarray(c).sum()) == cfg.bits_total
     e2, c2 = stream_simulate(cfg, jax.random.PRNGKey(0), n_blocks=2)
@@ -353,14 +352,8 @@ def test_pa_and_spread_config_gates():
     wide = dataclasses.replace(
         cfg, ofdm=OFDMConfig(4096, 512), n_symbols=8
     )
-    # The IN-KERNEL four-step MC still does not despread…
-    assert not supported(wide)
-    # …but round 4 lifted the engine gate: wideband SC-FDMA MC rides
-    # the staged composition (link.mc._mc_scfdma_wideband — trivial
-    # single-carrier TX + the fused three-phase SC-FDE count kernel).
-    from sdr_tpu.link.mc import _fde_mc_supported
-
-    assert _fde_mc_supported(wide)
+    # Wideband SC-FDMA runs on MC too: it is the fast engine per pass.
+    assert supported(wide)
     e3, c3 = mc_simulate(wide, seed=1)
     assert int(np.asarray(c3).sum()) == (
         wide.n_channels * wide.n_symbols * 4096 * 2

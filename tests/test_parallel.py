@@ -285,9 +285,9 @@ def test_sharded_stream_rayleigh_time_bit_exact(tshape):
 
 @pytest.mark.parametrize("tshape", [(1, 8), (2, 2)])
 def test_sharded_fast_fused_kernels_bit_exact(tshape):
-    """The fused Pallas TX+demod kernels under shard_map (interpret
-    mode on CPU) must match unsharded fast_simulate bit-exactly —
-    the throughput path composed with the mesh program."""
+    """The fast engine under shard_map must match unsharded
+    fast_simulate bit-exactly — the throughput path composed with the
+    mesh program."""
     from sdr_tpu.link.fast import fast_simulate
     from sdr_tpu.parallel import make_sharded_fast_fn
 
@@ -304,16 +304,36 @@ def test_sharded_fast_fused_kernels_bit_exact(tshape):
         n_channels=2 * nt * nc,  # every device is a DP worker
     )
     key = jax.random.PRNGKey(17)
-    e_sh, c_sh = make_sharded_fast_fn(cfg, mesh, backend="pallas")(key)
-    e_ref, c_ref = jax.jit(
-        lambda k: fast_simulate(cfg, k, backend="pallas")
-    )(key)
+    e_sh, c_sh = make_sharded_fast_fn(cfg, mesh)(key)
+    e_ref, c_ref = jax.jit(lambda k: fast_simulate(cfg, k))(key)
     np.testing.assert_array_equal(np.asarray(e_sh), np.asarray(e_ref))
     np.testing.assert_array_equal(np.asarray(c_sh), np.asarray(c_ref))
 
 
+@pytest.mark.parametrize("n_shards", [3, 5])
+def test_sharded_fast_odd_shards_bit_exact(n_shards):
+    """Shard sizes that are no multiple of 128 (or of anything): the
+    single RNG stream keeps sharded == unsharded bit-exact."""
+    from sdr_tpu.link.fast import fast_simulate
+    from sdr_tpu.parallel import make_sharded_fast_fn
+
+    mesh = make_link_mesh(1, n_shards, devices=jax.devices()[:n_shards])
+    cfg = LinkConfig(
+        modulation=Modulation.QAM16,
+        ofdm=OFDMConfig(64, 16),
+        channel=ChannelConfig(model=ChannelModel.RAYLEIGH_FLAT, ebno_db=10.0),
+        equalizer=Equalizer.MMSE,
+        n_symbols=2,
+        n_channels=n_shards * 43,
+    )
+    key = jax.random.PRNGKey(23)
+    e_sh, _ = make_sharded_fast_fn(cfg, mesh)(key)
+    e_ref, _ = jax.jit(lambda k: fast_simulate(cfg, k))(key)
+    np.testing.assert_array_equal(np.asarray(e_sh), np.asarray(e_ref))
+
+
 def test_sharded_fast_jnp_backend_bit_exact():
-    """Same invariant through the jnp composition backend."""
+    """Same invariant under per-symbol (Jakes) fading."""
     from sdr_tpu.link.fast import fast_simulate
     from sdr_tpu.parallel import make_sharded_fast_fn
 
@@ -329,8 +349,8 @@ def test_sharded_fast_jnp_backend_bit_exact():
         n_channels=8,
     )
     key = jax.random.PRNGKey(19)
-    e_sh, _ = make_sharded_fast_fn(cfg, mesh, backend="jnp")(key)
-    e_ref, _ = jax.jit(lambda k: fast_simulate(cfg, k, backend="jnp"))(key)
+    e_sh, _ = make_sharded_fast_fn(cfg, mesh)(key)
+    e_ref, _ = jax.jit(lambda k: fast_simulate(cfg, k))(key)
     np.testing.assert_array_equal(np.asarray(e_sh), np.asarray(e_ref))
 
 

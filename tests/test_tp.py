@@ -14,7 +14,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from sdr_tpu.core.config import Modulation
-from sdr_tpu.ops.demod import demod_chain_jnp
+from sdr_tpu.ops.demod import demod_chain
 from sdr_tpu.ops.equalize import equalize_mmse
 from sdr_tpu.ops.llr import llr_maxlog
 from sdr_tpu.parallel import make_link_mesh
@@ -82,7 +82,7 @@ def test_tp_matches_jnp_chain(mod):
     fn = make_tp_demod_fn(n_fft, cp_len, mod, mesh, axis="time")
     got = np.asarray(fn(re, im, hr, hi, nv))
     want = np.asarray(
-        demod_chain_jnp(re, im, hr, hi, cp_len, mod, nv)
+        demod_chain(re, im, hr, hi, cp_len, mod, nv)
     )
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=2e-4 * scale)
@@ -105,23 +105,34 @@ def test_tp_rejects_bad_shapes():
         fn(re, im, hr, hi, 0.1)  # wrong sym_len for cp mismatch
 
 
-def test_tp_pallas_backend_and_runtime_nv():
-    """Round 4: the fused stage-2 kernel runs INSIDE the TP shard_map
-    and noise_var is a runtime argument — one compiled fn serves two
-    Eb/N0 points, and the pallas backend matches the jnp backend to
-    kernel-matmul tolerance with identical hard decisions."""
+def test_tp_runtime_nv():
+    """noise_var is a runtime argument: one compiled fn serves two
+    Eb/N0 points, each matching the unsharded chain with identical
+    hard decisions."""
     mesh = make_link_mesh(8, 1, devices=jax.devices())
     n_fft, cp_len = 1024, 128
     mod = Modulation.QAM16
     re, im, hr, hi = _inputs(jax.random.PRNGKey(3), 4, 4, n_fft, cp_len, 1)
-    fn_p = make_tp_demod_fn(n_fft, cp_len, mod, mesh, backend="pallas")
-    fn_j = make_tp_demod_fn(n_fft, cp_len, mod, mesh, backend="jnp")
+    fn = make_tp_demod_fn(n_fft, cp_len, mod, mesh)
     for nv in (0.05, 0.2):
-        got = np.asarray(fn_p(re, im, hr, hi, nv))
-        want = np.asarray(fn_j(re, im, hr, hi, nv))
+        got = np.asarray(fn(re, im, hr, hi, nv))
+        want = np.asarray(demod_chain(re, im, hr, hi, cp_len, mod, nv))
         scale = np.abs(want).max()
         np.testing.assert_allclose(got, want, atol=2e-4 * scale)
         assert np.array_equal(got < 0, want < 0)
+    assert fn._cache_size() == 1
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_tp_fewer_devices_matches_unsharded(n_dev):
+    """The 4-way split the four-GPU check runs, and 2-way, at 4096sc."""
+    mesh = make_link_mesh(n_dev, 1, devices=jax.devices()[:n_dev])
+    n_fft, cp_len, mod = 4096, 512, Modulation.QAM16
+    re, im, hr, hi = _inputs(jax.random.PRNGKey(5), 2, 2, n_fft, cp_len, 1)
+    got = np.asarray(make_tp_demod_fn(n_fft, cp_len, mod, mesh)(
+        re, im, hr, hi, 0.05))
+    want = np.asarray(demod_chain(re, im, hr, hi, cp_len, mod, 0.05))
+    np.testing.assert_allclose(got, want, atol=2e-4 * np.abs(want).max())
 
 
 def test_tp_legacy_baked_noise_var():
